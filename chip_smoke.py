@@ -5,11 +5,17 @@
 
 Phases (any failed check raises, and the script exits non-zero):
   1. device: name, power limit, torch/CUDA versions; TF32 off;
-  2. build: the CUDA kernels from the sources in the checkout;
-  3. kernel vs plain version: the flash-decode parts kernel against its
-     plain PyTorch version for f32, bf16 and int8 pools at the GPT-2 124M
-     head shapes, with ragged and zero lengths, window starts, ps=32 and
-     B*pps > 4096; times from CUDA events beside the byte bound;
+  2. build: the CUDA kernels from the sources in the checkout, one nvcc
+     per source, all started together;
+  3. kernels vs plain versions: the flash-decode parts kernel and the
+     multi-query parts kernel against their plain PyTorch versions for
+     f32, bf16 and int8 pools at the GPT-2 124M head shapes (q f32 over
+     f32 pools, bf16 over bf16 and int8 pools as the headline sends it,
+     and f32 over int8 pools), with ragged
+     and zero lengths, window starts, ps=32 and B*pps > 4096; the
+     multi-query kernel also at the spec-verify shape (KQ=4), KQ=1 and
+     suffix shapes (KQ=32, and KQ=96 above the TPU kernel's 64); times
+     from CUDA events beside the bound;
   4. engine, headline config: GPT-2 124M (seeded random weights) served
      by InferenceEngine.run with int8 weights, int8 KV, bf16 activations,
      a bf16 prefill copy, page_size 128 and greedy 16-token chunks;
@@ -17,7 +23,17 @@ Phases (any failed check raises, and the script exits non-zero):
   5. fp32 engine, kernel route vs plain route: token streams, and the
      logits of one decode_step_paged on both routes;
   6. loaded queue: 16 mixed-length requests through 8 slots with a pool
-     small enough to force preemption.
+     small enough to force preemption;
+  7. speculative serving: the headline configuration with spec_k=4 and
+     3-gram prompt lookup, 8 prompts that repeat a 32-token segment 4
+     times, 128 new tokens each; multi-query launches = L x verify
+     steps; at fp32 the spec engine against the plain engine;
+  8. prefix caching: GPT-2 124M, pages_per_seq 4, 40 pages, 8 requests
+     sharing a 256-token system prompt (2 full pages) with own 32-token
+     suffixes, one engine run twice (int8 headline and fp32): run 2
+     adopts 16 pages, multi-query launches = L x suffix prefills,
+     fp32 streams against a no-prefix engine; one prefill_suffix_paged
+     against prefill_paged.
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
 
@@ -27,6 +43,7 @@ that holds the package.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -41,6 +58,9 @@ PEAK_F32_OPS_S = 67e12
 TOL_ABS, TOL_REL = 1e-4, 1e-4
 KERNEL_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention.cu"
 TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:248"
+MQ_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention_mq.cu"
+MQ_TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:481"
+KERNELS = ("paged_attention", "paged_attention_mq")
 
 
 def log(msg: str) -> None:
@@ -58,12 +78,15 @@ def check(cond: bool, msg: str) -> None:
 
 # ---- phase 3 helpers ---------------------------------------------------------
 
-def make_case(torch, *, B, NH, HS, ps, pps, P, kv, lengths, starts, seed,
-              device, repeat_pages=False):
-    """Random q and pool for one kernel case (seeded, made on the card)."""
+def make_case(torch, *, B, NH, HS, ps, pps, P, kv, qd, lengths, starts,
+              seed, device, repeat_pages=False, KQ=None):
+    """Random q (dtype ``qd``) and pool for one kernel case (seeded, made
+    on the card); q is (B, KQ, NH, HS) for the multi-query kernel."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    q = torch.randn(B, NH, HS, generator=g, device=device)
+    q = torch.randn(*((B, NH, HS) if KQ is None else (B, KQ, NH, HS)),
+                    generator=g, device=device).to(
+        {"f32": torch.float32, "bf16": torch.bfloat16}[qd])
     shape = (P, NH, HS, ps)
     if kv == "int8":
         k = torch.randint(-127, 128, shape, generator=g, device=device,
@@ -88,13 +111,13 @@ def make_case(torch, *, B, NH, HS, ps, pps, P, kv, lengths, starts, seed,
     return q, pool, tables, lengths, starts
 
 
+def wrapper_name(q, pool):
+    return ("paged_decode_attention" + ("_quant" if len(pool) == 4 else "")
+            + "_parts" + ("_mq" if q.dim() == 4 else ""))
+
+
 def run_parts(pa, q, pool, tables, lengths, starts, plain=False):
-    if len(pool) == 4:
-        fn = (pa.paged_decode_attention_quant_parts_ref if plain
-              else pa.paged_decode_attention_quant_parts)
-    else:
-        fn = (pa.paged_decode_attention_parts_ref if plain
-              else pa.paged_decode_attention_parts)
+    fn = getattr(pa, wrapper_name(q, pool) + ("_ref" if plain else ""))
     return fn(q, *pool, tables, lengths, starts)
 
 
@@ -129,94 +152,149 @@ def device_ms(torch, fn, iters=200):
     return start.elapsed_time(end) / iters
 
 
+def sector_bytes(mask, itemsize):
+    """Bytes of the 32-byte sectors of one contiguous run of len(mask)
+    elements that hold an element marked in mask."""
+    per = max(1, 32 // itemsize)
+    return 32 * sum(any(mask[i:i + per]) for i in range(0, len(mask), per))
+
+
 def parts_cost(q, pool, tables, lengths, starts):
-    """(bytes, f32 ops) the call must move and do for THESE inputs: each
-    live page's K/V (and scales) read once, q and the outputs once."""
-    B, NH, HS = q.shape
+    """(bytes, f32 ops) the call must move and do for THESE inputs: K/V
+    (and int8 scales) only for the valid tokens [start, len) of each row,
+    counted in the 32-byte sectors of the (P, NH, HS, ps) layout that hold
+    them (a page's tokens are contiguous in each (head, dim) row; a page
+    named by several rows is read once); q at its dtype, the tables,
+    lengths and starts read once, acc/m/l written once; every query
+    scores and sums every valid token."""
+    B, NH, HS = q.shape[0], q.shape[-2], q.shape[-1]
+    KQ = q.shape[1] if q.dim() == 4 else 1
     ps = pool[0].shape[3]
-    itemsize = pool[0].element_size()
-    live_pages = 0
+    rows = tables.tolist()
+    live = {}                   # page id -> token slots read
     live_tokens = 0
-    for ln, st in zip(lengths.tolist(), starts.tolist()):
-        if ln > 0 and ln > st:
-            first, last = st // ps, (ln - 1) // ps
-            live_pages += last - first + 1
-            live_tokens += ln - st
-    page_bytes = 2 * NH * HS * ps * itemsize
+    for b, (ln, st) in enumerate(zip(lengths.tolist(), starts.tolist())):
+        if ln <= max(st, 0):
+            continue
+        live_tokens += ln - st
+        for j in range(st // ps, (ln - 1) // ps + 1):
+            mask = live.setdefault(rows[b][j], [False] * ps)
+            for t in range(max(st, j * ps) - j * ps,
+                           min(ln, (j + 1) * ps) - j * ps):
+                mask[t] = True
+    kv_bytes = sum(sector_bytes(m, pool[0].element_size())
+                   for m in live.values()) * 2 * NH * HS
     if len(pool) == 4:
-        page_bytes += 2 * NH * ps * 4
-    nbytes = (live_pages * page_bytes + q.numel() * q.element_size()
-              + B * NH * (HS + 2) * 4 + B * 4 * 2 + tables.numel() * 4)
-    ops = live_tokens * NH * 4 * HS          # q·k and p·v, 2 ops per MAC
+        kv_bytes += sum(sector_bytes(m, 4) for m in live.values()) * 2 * NH
+    nbytes = (kv_bytes + q.numel() * q.element_size()
+              + B * KQ * NH * (HS + 2) * 4 + B * 4 * 2 + tables.numel() * 4)
+    ops = KQ * live_tokens * NH * 4 * HS     # q·k and p·v, 2 ops per MAC
     return nbytes, ops
 
 
+def time_case(torch, pa, q, pool, tables, lengths, starts):
+    """Kernel and plain device times (ms) and the bound of one case."""
+    ms = device_ms(torch, lambda: run_parts(pa, q, pool, tables, lengths,
+                                            starts))
+    plain = device_ms(torch, lambda: run_parts(
+        pa, q, pool, tables, lengths, starts, plain=True), iters=20)
+    nbytes, ops = parts_cost(q, pool, tables, lengths, starts)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    return dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+HEADLINE_LENGTHS = [130, 150, 170, 190, 210, 230, 250, 255]
+SQ_CASES = [
+    # (name, kwargs); the single-query kernel
+    ("headline", dict(B=8, ps=128, pps=3, P=28, lengths=HEADLINE_LENGTHS,
+                      starts=[0] * 8)),
+    ("ragged+zero+boundary", dict(B=8, ps=128, pps=3, P=28,
+                                  lengths=[200, 0, 1, 128, 129, 255, 384, 77],
+                                  starts=[0] * 8)),
+    ("window", dict(B=8, ps=128, pps=3, P=28,
+                    lengths=[384, 300, 256, 200, 384, 130, 5, 260],
+                    starts=[256, 128, 200, 0, 129, 129, 7, 256])),
+    ("ps32", dict(B=8, ps=32, pps=12, P=100,
+                  lengths=[384, 0, 1, 32, 33, 100, 250, 383],
+                  starts=[0, 0, 0, 0, 1, 40, 64, 300])),
+    ("B*pps>4096", dict(B=8, ps=128, pps=520, P=64, repeat_pages=True,
+                        lengths=[66560, 1, 0, 40000, 128, 129, 5000, 66559],
+                        starts=[0, 0, 0, 39000, 0, 0, 4000, 60000])),
+]
+MQ_CASES = [
+    # the multi-query kernel: spec verify (KQ = spec_k = 4), KQ=1, the
+    # phase-8 suffix (8 rows of 32 queries over a 256-token prefix), a
+    # 96-query suffix (above the TPU kernel's 64)
+    ("spec", dict(SQ_CASES[0][1], KQ=4)),
+    ("KQ=1", dict(SQ_CASES[0][1], KQ=1)),
+    ("ragged+zero+boundary", dict(SQ_CASES[1][1], KQ=4)),
+    ("window", dict(SQ_CASES[2][1], KQ=4)),
+    ("ps32", dict(SQ_CASES[3][1], KQ=4)),
+    ("suffix32", dict(B=8, ps=128, pps=4, P=40, lengths=[256] * 8,
+                      starts=[0] * 8, KQ=32)),
+    ("suffix96", dict(B=8, ps=128, pps=4, P=40,
+                      lengths=[256, 0, 128, 384, 1, 129, 300, 512],
+                      starts=[0, 0, 0, 100, 0, 0, 0, 0], KQ=96)),
+    ("B*pps>4096", dict(SQ_CASES[4][1], KQ=4)),
+]
+# (pool, q dtype) pairs: q as the main path sends it (f32 over the fp32
+# engine's pool, bf16 over the headline int8 pool and over bf16 pools),
+# and int8 under an f32 q (fp32 activations over an int8 pool)
+POOLS = (("f32", "f32"), ("bf16", "bf16"), ("int8", "bf16"),
+         ("int8", "f32"))
+# (case, pool) pairs timed for the record, at the main path's q dtype:
+# the JSON line takes the first case of each kernel; the suffix times go
+# to the log
+TIMED_CASES = {"headline", "spec", "suffix32"}
+TIMED_POOLS = {("f32", "f32"), ("int8", "bf16")}
+
+
 def phase_kernels(torch, pa, device):
-    """Kernel vs plain version over the required cases; returns per-kernel
-    records for the JSON line (times at the headline shapes)."""
+    """Kernels vs plain versions over the required cases; returns
+    per-wrapper records for the JSON line (times at the main path's
+    shapes: the headline decode shape, the spec-verify shape)."""
     NH, HS = 12, 64
-    rng_lengths = [200, 0, 1, 128, 129, 255, 384, 77]
-    cases = [
-        # (name, kwargs)
-        ("headline", dict(B=8, ps=128, pps=3, P=28,
-                          lengths=[130, 150, 170, 190, 210, 230, 250, 255],
-                          starts=[0] * 8)),
-        ("ragged+zero+boundary", dict(B=8, ps=128, pps=3, P=28,
-                                      lengths=rng_lengths, starts=[0] * 8)),
-        ("window", dict(B=8, ps=128, pps=3, P=28,
-                        lengths=[384, 300, 256, 200, 384, 130, 5, 260],
-                        starts=[256, 128, 200, 0, 129, 129, 7, 256])),
-        ("ps32", dict(B=8, ps=32, pps=12, P=100,
-                      lengths=[384, 0, 1, 32, 33, 100, 250, 383],
-                      starts=[0, 0, 0, 0, 1, 40, 64, 300])),
-        ("B*pps>4096", dict(B=8, ps=128, pps=520, P=64, repeat_pages=True,
-                            lengths=[66560, 1, 0, 40000, 128, 129, 5000,
-                                     66559],
-                            starts=[0, 0, 0, 39000, 0, 0, 4000, 60000])),
-    ]
     records = {}
-    for kv in ("f32", "bf16", "int8"):
-        wrapper = ("paged_decode_attention_quant_parts" if kv == "int8"
-                   else "paged_decode_attention_parts")
-        rec = records.setdefault(wrapper, {"max_abs_err": 0.0})
-        for ci, (name, kw) in enumerate(cases):
+    for kv, qd in POOLS:
+        for ci, (name, kw) in enumerate(SQ_CASES + MQ_CASES):
             q, pool, tables, lengths, starts = make_case(
-                torch, NH=NH, HS=HS, kv=kv, seed=100 + ci, device=device,
-                **kw)
+                torch, NH=NH, HS=HS, kv=kv, qd=qd, seed=100 + ci,
+                device=device, **kw)
+            wrapper = wrapper_name(q, pool)
+            rec = records.setdefault(wrapper, {"max_abs_err": 0.0})
             got = run_parts(pa, q, pool, tables, lengths, starts)
             ref = run_parts(pa, q, pool, tables, lengths, starts, plain=True)
             torch.cuda.synchronize()
             errs, ok = max_err(torch, got, ref)
             err = max(errs)
-            log(f"  {kv:5s} {name:22s} max|d| acc {errs[0]:.3e} m "
+            kind = "mq" if q.dim() == 4 else "sq"
+            kvq = f"{kv}/q{qd}"
+            log(f"  {kind} {kvq:10s} {name:22s} max|d| acc {errs[0]:.3e} m "
                 f"{errs[1]:.3e} l {errs[2]:.3e} "
                 f"{'ok' if ok else 'FAIL'}")
-            check(ok, f"kernel vs plain mismatch: {kv} {name}")
+            check(ok, f"kernel vs plain mismatch: {kind} {kvq} {name}")
             check(all(bool(torch.isfinite(t).all()) for t in got),
-                  f"non-finite kernel output: {kv} {name}")
+                  f"non-finite kernel output: {kind} {kvq} {name}")
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            if name == "headline" and kv in ("f32", "int8"):
-                # f32 serving pool for the float kernel, int8 for the quant
-                ms = device_ms(torch, lambda: run_parts(
-                    pa, q, pool, tables, lengths, starts))
-                plain = device_ms(torch, lambda: run_parts(
-                    pa, q, pool, tables, lengths, starts, plain=True),
-                    iters=20)
-                nbytes, ops = parts_cost(q, pool, tables, lengths, starts)
-                t_bytes = nbytes / PEAK_BYTES_S * 1e3
-                t_ops = ops / PEAK_F32_OPS_S * 1e3
-                rec.update(ms=ms, plain_ms=plain,
-                           bound_ms=max(t_bytes, t_ops),
-                           bound_by="bytes" if t_bytes >= t_ops
-                           else "operations", bytes=nbytes, ops=ops)
-                log(f"  {kv:5s} headline time: kernel {ms * 1e3:.2f} us, "
-                    f"plain {plain * 1e3:.2f} us, bound "
-                    f"{max(t_bytes, t_ops) * 1e3:.3f} us "
-                    f"({nbytes} B, {ops} f32 ops)")
+            if name in TIMED_CASES and (kv, qd) in TIMED_POOLS:
+                # the fp32 engine's pool for the float kernels, the
+                # headline's int8 pool under bf16 q for the quant kernels
+                t = time_case(torch, pa, q, pool, tables, lengths, starts)
+                if "ms" not in rec:
+                    rec.update(t, shape=name)
+                log(f"  {kind} {kvq} {name} time: kernel "
+                    f"{t['ms'] * 1e3:.2f} us, plain "
+                    f"{t['plain_ms'] * 1e3:.2f} us, bound "
+                    f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
+                    f"({t['bytes']} B, {t['ops']} f32 ops)")
+            del q, pool, got, ref
     return records
 
 
-# ---- phases 4-6 -----------------------------------------------------------
+# ---- phases 4-8 -----------------------------------------------------------
 
 def prompts_for(torch, n, lengths, V, seed, device):
     g = torch.Generator(device=device)
@@ -227,19 +305,21 @@ def prompts_for(torch, n, lengths, V, seed, device):
 
 def serve(torch, params, cfg, *, prompts, new, kv_dtype, param_dtype,
           num_pages, use_kernel=True, max_new=None, device="cuda",
-          engine=None):
+          engine=None, pps=3, spec_k=0, prefix=False):
     from llmc_paged_tpu_torch.config import EngineConfig, PageConfig
     from llmc_paged_tpu_torch.engine.engine import InferenceEngine
     from llmc_paged_tpu_torch.engine.scheduler import Request
     if engine is None:
         quant = param_dtype == "int8"
         page = PageConfig(page_size=128, num_pages=num_pages, max_seqs=8,
-                          pages_per_seq=3, kv_dtype=kv_dtype)
+                          pages_per_seq=pps, kv_dtype=kv_dtype,
+                          prefix_cache=prefix)
         econf = EngineConfig(
             cache_mode="paged", page=page, max_batch=8, greedy=True,
             decode_chunk=16, param_dtype=param_dtype,
             activation_dtype="bfloat16" if quant else "float32",
-            prefill_param_dtype="bfloat16" if quant else None)
+            prefill_param_dtype="bfloat16" if quant else None,
+            spec_k=spec_k, spec_ngram=3)
         engine = InferenceEngine(params, cfg, econf, device=device,
                                  use_kernel=use_kernel)
     reqs = [Request(rid=i, prompt=list(p),
@@ -248,6 +328,26 @@ def serve(torch, params, cfg, *, prompts, new, kv_dtype, param_dtype,
     done = engine.run(reqs)
     torch.cuda.synchronize()
     return engine, sorted(done, key=lambda r: r.rid)
+
+
+def count_syncs(torch, fn):
+    """Synchronizing CUDA calls made by fn(), counted by torch's sync
+    debug mode: device→host copies, and host→device copies from pageable
+    memory (a blocking copy waits for the stream to drain)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+        if "called a synchronizing CUDA operation" in str(w.message))
+    return sum(where.values()), dict(where)
 
 
 def reset_counts(pa):
@@ -261,7 +361,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from llmc_paged_tpu_torch.config import GPT2Config
+    from llmc_paged_tpu_torch.config import GPT2Config, PageConfig
     from llmc_paged_tpu_torch.kv.layouts import init_pool, token_coords
     from llmc_paged_tpu_torch.models import gpt2, gpt2_paged
     from llmc_paged_tpu_torch.ops import _build
@@ -282,12 +382,12 @@ def main() -> int:
 
     # 2. build
     t0 = time.monotonic()
-    _build.build_all(["paged_attention"])
+    _build.build_all(KERNELS)
     log(f"build: {time.monotonic() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in _build.BUILD_SECONDS.items())})")
 
     # 3. kernel vs plain
-    log(f"phase 3: kernel vs plain version (tol {TOL_ABS:g} + "
+    log(f"phase 3: kernels vs plain versions (tol {TOL_ABS:g} + "
         f"{TOL_REL:g}*|ref|; acc: + {TOL_REL:g}*(|acc|+l))")
     records = phase_kernels(torch, pa, device)
 
@@ -312,10 +412,12 @@ def main() -> int:
           "headline: not every request finished with 128 tokens")
     check(all(0 <= t < cfg.vocab_size for r in done for t in r.generated),
           "headline: token id out of range")
-    want = cfg.num_layers * st["decode_steps"]
-    check(launches_main["paged_decode_attention_quant_parts"] == want,
+    L = cfg.num_layers
+    want = L * st["decode_steps"]
+    check(launches_main["paged_decode_attention_quant_parts"] == want
+          and launches_main["paged_decode_attention_quant_parts_mq"] == 0,
           f"headline: {launches_main} launches, want {want} int8 "
-          f"(L x {st['decode_steps']} decode steps)")
+          f"(L x {st['decode_steps']} decode steps) and no mq launch")
     log(f"  decode_tok_per_s {st['decode_tok_per_s']:.1f}, p50_ttft_s "
         f"{st['p50_ttft_s']:.4f}, decode steps {st['decode_steps']}, "
         f"launches {launches_main}, wall {st['wall_s']:.3f} s (host: "
@@ -347,7 +449,6 @@ def main() -> int:
     log(f"  streams: {agree}/8 identical over 32 tokens, all agree on the "
         f"first 8")
     # one decode_step_paged on both routes, over a freshly prefilled pool
-    from llmc_paged_tpu_torch.config import PageConfig
     page = PageConfig(page_size=128, num_pages=28, max_seqs=8,
                       pages_per_seq=3)
     pool = init_pool(cfg, page, dtype="float32", device=device)
@@ -392,16 +493,201 @@ def main() -> int:
         f"{eng_q.stats['peak_pages_used']}, decode_tok_per_s "
         f"{eng_q.stats['decode_tok_per_s']:.1f}")
 
+    # 7. speculative serving (the main path of the multi-query kernel)
+    log("phase 7: speculative decode, spec_k=4, 3-gram prompt lookup, "
+        "headline configuration")
+    segs = prompts_for(torch, 8, [32] * 8, cfg.vocab_size, 3, device)
+    sprompts = [seg * 4 for seg in segs]
+    spec = dict(kv_dtype="int8", param_dtype="int8", num_pages=28, spec_k=4)
+    eng_s, _ = serve(torch, params32, cfg, prompts=sprompts, new=20, **spec)
+    reset_counts(pa)
+    eng_s, done_s = serve(torch, params32, cfg, prompts=sprompts, new=128,
+                          engine=eng_s, **spec)
+    launches_spec = dict(pa.LAUNCHES)
+    st = eng_s.stats
+    check(len(done_s) == 8 and all(len(r.generated) == 128 for r in done_s),
+          "spec: not every request finished with 128 tokens")
+    check(all(0 <= t < cfg.vocab_size for r in done_s for t in r.generated),
+          "spec: token id out of range")
+    check(st["verify_steps"] > 0
+          and launches_spec["paged_decode_attention_quant_parts_mq"]
+          == L * st["verify_steps"]
+          and launches_spec["paged_decode_attention_quant_parts"]
+          == L * (st["decode_steps"] - st["verify_steps"]),
+          f"spec: {launches_spec} launches, want L x {st['verify_steps']} "
+          f"verify steps (mq) and L x the other "
+          f"{st['decode_steps'] - st['verify_steps']} steps")
+    log(f"  decode_tok_per_s {st['decode_tok_per_s']:.1f}, "
+        f"spec_tok_per_step {st['spec_tok_per_step']}, p50_ttft_s "
+        f"{st['p50_ttft_s']:.4f}, verify steps {st['verify_steps']}, "
+        f"decode steps {st['decode_steps']}, launches {launches_spec}, "
+        f"wall {st['wall_s']:.3f} s (host: chain dispatch "
+        f"{st['t_chain_dispatch_s']} s, materialize "
+        f"{st['t_materialize_s']} s)")
+    # synchronizing calls: one engine run of the spec chain (by line, so
+    # the chain's links show apart from admission and prefill), then one
+    # bare speculative link (device carries, host block tables) and one
+    # plain chunk link, both S=16 steps over the int8 pool
+    syncs_run, where_run = count_syncs(torch, lambda: serve(
+        torch, params32, cfg, prompts=sprompts, new=32, engine=eng_s,
+        **spec))
+    links_run = eng_s.stats["verify_steps"] // 16
+    log(f"  synchronizing CUDA calls in one engine run (8 requests, 32 new "
+        f"tokens, {links_run} speculative links): {syncs_run}, by line "
+        f"{json.dumps(where_run, sort_keys=True)}")
+    pool_s, B8 = eng_s._pool_cache, 8
+    tables = torch.arange(3 * B8, dtype=torch.int32).reshape(B8, 3)
+    carry = dict(first_tokens=torch.full((B8,), 7, device=device,
+                                         dtype=torch.int32),
+                 positions0=torch.full((B8,), 128, device=device,
+                                       dtype=torch.int32),
+                 hist=torch.zeros(B8, 385, device=device, dtype=torch.int32))
+    syncs_spec, _ = count_syncs(torch, lambda: gpt2_paged.decode_chunk_spec(
+        eng_s.params, pool=pool_s, block_tables=tables, cfg=cfg,
+        num_steps=16, spec_k=4, ngram=3, active=[True] * B8, **carry))
+    pos = 128 + torch.arange(16, dtype=torch.int32)[:, None].repeat(1, B8)
+    pgs = tables.gather(1, (pos // 128).T.long()).T.contiguous()
+    syncs_plain, _ = count_syncs(torch, lambda: gpt2_paged.decode_chunk_paged(
+        eng_s.params, carry["first_tokens"],
+        torch.full((B8,), 128, dtype=torch.int32), pgs, pos % 128, tables,
+        pool_s, cfg, num_steps=16, window=cfg.max_seq_len))
+    log(f"  synchronizing CUDA calls in one bare link: speculative "
+        f"{syncs_spec}, plain chunk {syncs_plain} (the chain adds one "
+        "device→host copy at its end)")
+    del pool_s
+    spec32 = dict(spec, kv_dtype="float32", param_dtype="float32")
+    reset_counts(pa)
+    eng_sf, done_sf = serve(torch, params32, cfg, prompts=sprompts, new=32,
+                            **spec32)
+    launches_spec_f32 = dict(pa.LAUNCHES)
+    want = L * eng_sf.stats["verify_steps"]
+    check(want > 0
+          and launches_spec_f32["paged_decode_attention_parts_mq"] == want,
+          f"spec fp32: {launches_spec_f32} launches, want {want} float mq")
+    _, done_pf = serve(torch, params32, cfg, prompts=sprompts, new=32,
+                       **dict(spec32, spec_k=0))
+    for a, b in zip(done_sf, done_pf):
+        check(len(a.generated) == len(b.generated) == 32,
+              f"spec fp32: stream lengths {len(a.generated)} vs "
+              f"{len(b.generated)}")
+        check(a.generated[:8] == b.generated[:8],
+              f"spec fp32: spec and plain streams disagree in the first 8 "
+              f"tokens: {a.generated[:8]} vs {b.generated[:8]}")
+    agree = sum(a.generated == b.generated for a, b in zip(done_sf, done_pf))
+    log(f"  fp32 spec vs plain engine: {agree}/8 streams identical over 32 "
+        f"tokens, all agree on the first 8 (spec_tok_per_step "
+        f"{eng_sf.stats['spec_tok_per_step']})")
+
+    # 8. prefix caching
+    log("phase 8: prefix caching, 256-token shared system prompt + 32-token "
+        "suffixes, pages_per_seq 4, 40 pages")
+    sys_prompt = prompts_for(torch, 1, [256], cfg.vocab_size, 4, device)[0]
+    tails = prompts_for(torch, 8, [32] * 8, cfg.vocab_size, 5, device)
+    pprompts = [sys_prompt + t for t in tails]
+    done_prefix = {}
+    for dt in ("int8", "float32"):
+        pref = dict(kv_dtype=dt, param_dtype=dt, num_pages=40, pps=4)
+        mq_key = ("paged_decode_attention_quant_parts_mq" if dt == "int8"
+                  else "paged_decode_attention_parts_mq")
+        eng_p = None
+        for run in (1, 2):          # cold, then adopting the cached pages
+            reset_counts(pa)
+            eng_p, done_p = serve(torch, params32, cfg, prompts=pprompts,
+                                  new=64, engine=eng_p, prefix=True, **pref)
+            launches_p = dict(pa.LAUNCHES)
+            st = eng_p.stats
+            check(len(done_p) == 8
+                  and all(len(r.generated) == 64 for r in done_p)
+                  and all(0 <= t < cfg.vocab_size
+                          for r in done_p for t in r.generated),
+                  f"prefix {dt} run {run}: not every request finished "
+                  "with 64 in-range tokens")
+            check(launches_p[mq_key] == L * st["suffix_prefills"],
+                  f"prefix {dt} run {run}: {launches_p} launches, want "
+                  f"L x {st['suffix_prefills']} suffix prefills (mq)")
+            if run == 2:
+                check(st["prefix_hit_pages"] == 16
+                      and st["suffix_prefills"] >= 1,
+                      f"prefix {dt} run {run}: {st['prefix_hit_pages']} hit "
+                      f"pages, {st['suffix_prefills']} suffix prefills "
+                      "(want 16 and >= 1)")
+            log(f"  {dt} run {run}: decode_tok_per_s "
+                f"{st['decode_tok_per_s']:.1f}, p50_ttft_s "
+                f"{st['p50_ttft_s']:.4f}, hit pages "
+                f"{st['prefix_hit_pages']}, hit tokens "
+                f"{st['prefix_hit_tokens']}, registered "
+                f"{st['prefix_pages_registered']}, cached "
+                f"{st['prefix_cached_pages']}, suffix prefills "
+                f"{st['suffix_prefills']}, launches {launches_p}, wall "
+                f"{st['wall_s']:.3f} s (prefill dispatch "
+                f"{st['t_prefill_dispatch_s']} s, chain dispatch "
+                f"{st['t_chain_dispatch_s']} s)")
+        done_prefix[dt] = (eng_p, done_p)
+    eng_pf32, done_pf32 = done_prefix["float32"]
+    eng_nf, done_nf = serve(torch, params32, cfg, prompts=pprompts, new=64,
+                            kv_dtype="float32", param_dtype="float32",
+                            num_pages=40, pps=4)
+    for a, b in zip(done_pf32, done_nf):
+        check(a.generated[:8] == b.generated[:8],
+              f"prefix fp32: streams disagree with the no-prefix engine in "
+              f"the first 8 tokens: {a.generated[:8]} vs {b.generated[:8]}")
+    agree = sum(a.generated == b.generated
+                for a, b in zip(done_pf32, done_nf))
+    st = eng_nf.stats
+    log(f"  fp32 prefix (run 2) vs no-prefix engine: {agree}/8 streams "
+        "identical over 64 tokens, all agree on the first 8; no-prefix "
+        f"engine: decode_tok_per_s {st['decode_tok_per_s']:.1f}, p50_ttft_s "
+        f"{st['p50_ttft_s']:.4f}, prefill dispatch "
+        f"{st['t_prefill_dispatch_s']} s")
+    # one suffix prefill against the full prefill of the same prompts
+    page4 = PageConfig(page_size=128, num_pages=40, max_seqs=8,
+                       pages_per_seq=4)
+    tables4 = torch.arange(32, dtype=torch.int32).reshape(8, 4)
+    xs = torch.tensor(pprompts, dtype=torch.int32)
+    Tf = xs.shape[1]
+    ones = torch.ones(8, Tf, dtype=torch.bool)
+    pos = torch.arange(Tf, dtype=torch.int32).repeat(8, 1)
+    pg, sl = token_coords(tables4, pos, 128, ones, 40)
+    pool_a = init_pool(cfg, page4, dtype="float32", device=device)
+    la, _ = gpt2_paged.prefill_paged(eng_pf32.params, xs, pg, sl, pool_a,
+                                     cfg, last_pos=torch.full((8,), Tf - 1))
+    del pool_a
+    pool_b = init_pool(cfg, page4, dtype="float32", device=device)
+    gpt2_paged.prefill_paged(eng_pf32.params, xs[:, :256], pg[:, :256],
+                             sl[:, :256], pool_b, cfg,
+                             last_pos=torch.full((8,), 255))
+    reset_counts(pa)
+    lb, _ = gpt2_paged.prefill_suffix_paged(
+        eng_pf32.params, xs[:, 256:], pg[:, 256:], sl[:, 256:], pool_b,
+        tables4, torch.full((8,), 256, dtype=torch.int32), cfg,
+        last_pos=torch.full((8,), Tf - 257))
+    torch.cuda.synchronize()
+    d = float((la - lb).abs().max())
+    log(f"  prefill_suffix_paged vs prefill_paged logits: max|d| {d:.3e} "
+        f"(tol 1e-3), mq launches {pa.LAUNCHES['paged_decode_attention_parts_mq']}")
+    check(d <= 1e-3 and bool(torch.isfinite(lb).all())
+          and pa.LAUNCHES["paged_decode_attention_parts_mq"] == L,
+          "prefix: suffix prefill disagrees with the full prefill")
+    del pool_b
+
     kernels = []
-    for wrapper, launches in (
+    for wrapper, launches, source, replaces in (
             ("paged_decode_attention_parts",
-             launches_f32["paged_decode_attention_parts"]),
+             launches_f32["paged_decode_attention_parts"], KERNEL_SOURCE,
+             TPU_KERNEL),
             ("paged_decode_attention_quant_parts",
-             launches_main["paged_decode_attention_quant_parts"])):
+             launches_main["paged_decode_attention_quant_parts"],
+             KERNEL_SOURCE, TPU_KERNEL),
+            ("paged_decode_attention_parts_mq",
+             launches_spec_f32["paged_decode_attention_parts_mq"], MQ_SOURCE,
+             MQ_TPU_KERNEL),
+            ("paged_decode_attention_quant_parts_mq",
+             launches_spec["paged_decode_attention_quant_parts_mq"],
+             MQ_SOURCE, MQ_TPU_KERNEL)):
         rec = records[wrapper]
         kernels.append({
-            "name": wrapper, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": TPU_KERNEL, "launches": launches,
+            "name": wrapper, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None})

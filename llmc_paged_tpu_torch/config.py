@@ -2,10 +2,10 @@
 GPT2Config, PageConfig and EngineConfig (same fields, same defaults), so
 that one EngineConfig describes the same deployment in both packages.
 
-Fields that select behaviour outside this slice of the port (speculative
-decode, prefix caching, tensor parallelism, device sampling, logprobs,
-streaming) are kept so configurations carry over; the port's engine
-raises NotImplementedError when one is switched on.
+Fields that select behaviour the port does not have yet (tensor
+parallelism, device sampling, logprobs, streaming) are kept so
+configurations carry over; the port's engine raises NotImplementedError
+when one is switched on.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ class PageConfig:
     max_seqs: int = 8
     pages_per_seq: int = 32
     kv_dtype: str = "float32"   # "float32" | "bfloat16" | "int8"
-    prefix_cache: bool = False  # not in this slice of the port
+    prefix_cache: bool = False  # content-keyed sharing of full prompt pages
 
     @property
     def max_context(self) -> int:

@@ -12,11 +12,20 @@ Continuous batching over the paged pool, greedy:
     the device between links, and ONE device→host copy per chain;
   * a single-token step when no chain can run, with LRU preemption and
     requeue of the victims;
-  * stop tokens.
+  * stop tokens;
+  * speculative decode (EngineConfig.spec_k >= 2): chains of verify
+    chunks, each step scoring the carried token plus n-gram drafts; the
+    host reserves S*spec_k tokens a row a link and rolls back with
+    truncate_to once the chain materializes;
+  * prefix caching (PageConfig.prefix_cache): a persistent
+    PrefixCachingBlockManager shares full prompt pages by content; an
+    admitted row adopts its longest cached prefix and only its suffix is
+    prefilled (prefill_suffix_paged).
 
 Host↔device traffic per link: a few int32 metadata arrays go up (first
-tokens, positions, page/slot coordinates, block tables); tokens come down
-once per chain. Options outside this slice of the port raise
+tokens, positions, page/slot coordinates, block tables; a speculative
+link uploads only its block tables and its active-row mask); tokens
+(and a speculative chain's acceptance counts) come down once per chain. Options outside this slice of the port raise
 NotImplementedError and name their ROADMAP item.
 """
 
@@ -33,7 +42,10 @@ from llmc_paged_tpu_torch import resolve_device
 from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config, PageConfig
 from llmc_paged_tpu_torch.engine.scheduler import Request, Scheduler, State
 from llmc_paged_tpu_torch.kv.layouts import init_pool, token_coords
-from llmc_paged_tpu_torch.kv.manager import BlockManager
+from llmc_paged_tpu_torch.kv.manager import (
+    BlockManager,
+    PrefixCachingBlockManager,
+)
 from llmc_paged_tpu_torch.models import gpt2, gpt2_paged
 from llmc_paged_tpu_torch.ops.int8 import quantize_params
 
@@ -52,15 +64,18 @@ def _bucket(n: int, step: int = 16) -> int:
 
 
 def _validate_indices(page_cfg: PageConfig, tables: np.ndarray,
-                      pgs: np.ndarray, sls: np.ndarray,
+                      pgs: Optional[np.ndarray] = None,
+                      sls: Optional[np.ndarray] = None,
                       lengths: Optional[np.ndarray] = None) -> None:
     """Host-side bounds check of every device index
     (EngineConfig.debug_checks); page == num_pages is the drop sentinel."""
     if not (tables.min() >= 0 and tables.max() < page_cfg.num_pages):
         raise ValueError("block table entry out of range")
-    if not (pgs.min() >= 0 and pgs.max() <= page_cfg.num_pages):
+    if pgs is not None and not (pgs.min() >= 0
+                                and pgs.max() <= page_cfg.num_pages):
         raise ValueError("page coordinate out of range")
-    if not (sls.min() >= 0 and sls.max() < page_cfg.page_size):
+    if sls is not None and not (sls.min() >= 0
+                                and sls.max() < page_cfg.page_size):
         raise ValueError("slot out of range")
     if lengths is not None and not (
             lengths.min() >= 0 and lengths.max() <= page_cfg.max_context):
@@ -124,18 +139,20 @@ class InferenceEngine:
         # the pool is kept across run() calls: stale contents are never
         # read (tables and lengths only cover tokens of the current run)
         self._pool_cache = None
+        # prefix caching: the manager persists across run() calls together
+        # with the pool whose pages it describes
+        self._prefix_mgr = None
 
     def _check_config(self) -> None:
         econf, page = self.econf, self.econf.page
         if econf.cache_mode != "paged":
             raise _later(f"cache_mode={econf.cache_mode!r}",
                          "the dense and no-cache modes")
-        if econf.spec_k >= 2:
-            raise _later("spec_k >= 2", "the multi-query kernel with "
-                         "speculative decode and prefix caching")
-        if page.prefix_cache:
-            raise _later("prefix_cache", "the multi-query kernel with "
-                         "speculative decode and prefix caching")
+        if econf.spec_k >= 2 and not econf.greedy:
+            raise ValueError(
+                "spec_k requires greedy serving: speculative verification "
+                "accepts argmax matches; rejection sampling for the "
+                "stochastic samplers is not implemented")
         if econf.mesh_shape:
             raise _later("mesh_shape", "training and tensor parallelism")
         if econf.device_sampling:
@@ -184,11 +201,34 @@ class InferenceEngine:
                 f"request {req.rid} needs {-(-phys // page.page_size)}"
                 f" pages > pool size {page.num_pages} — it can never"
                 " be scheduled")
+        # spec_k / prefix_cache require that the window never activates:
+        # sliding would make page content position-dependent and change
+        # what verify queries attend mid-stream
+        if (self.econf.spec_k >= 2 or page.prefix_cache) and need > window:
+            mode = "spec_k" if self.econf.spec_k >= 2 else "prefix_cache"
+            raise ValueError(
+                f"{mode} with sliding-window serving is not supported: "
+                f"request {req.rid} outgrows the window ({window})")
 
     def _paged_state(self):
         page = self.econf.page
-        mgr = BlockManager(page.num_pages, page.page_size,
-                           max(page.max_seqs, self.econf.max_batch))
+        max_seqs = max(page.max_seqs, self.econf.max_batch)
+        if page.prefix_cache:
+            # the prefix-caching manager PERSISTS across runs: cached pages
+            # outlive their owners. Its metadata is only valid over the
+            # same pool buffers, so a lost pool cache restarts it.
+            mgr = self._prefix_mgr
+            if mgr is None or self._pool_cache is None:
+                mgr = PrefixCachingBlockManager(page.num_pages,
+                                                page.page_size, max_seqs)
+                self._prefix_mgr = mgr
+            else:
+                # sequences a previous run left behind: their full hashed
+                # pages demote to the cache (the across-run reuse)
+                for pid in range(mgr.max_seqs):
+                    mgr.free_prompt(pid)
+        else:
+            mgr = BlockManager(page.num_pages, page.page_size, max_seqs)
         pool = self._pool_cache
         self._pool_cache = None
         if pool is None:
@@ -240,6 +280,8 @@ class InferenceEngine:
         t_start = time.monotonic()
         decode_tokens = 0
         decode_steps = 0        # device decode steps (each = L kernel calls)
+        verify_steps = 0        # of which speculative verify steps
+        suffix_prefills = 0     # prefix-cache suffix prefill calls
         peak_pages = 0
         iteration = 0
         # host wall-time breakdown: dispatch buckets measure host time to
@@ -250,6 +292,13 @@ class InferenceEngine:
         # per-slot count of prompt tokens dropped at admission (prompt
         # longer than the window); cache positions are relative to it
         bases: Dict[int, int] = {}
+        # per-slot count of prompt tokens served from ADOPTED cached pages:
+        # the suffix prefill starts at this position (0 without caching)
+        cached: Dict[int, int] = {}
+        prefix_on = page.prefix_cache
+        prefix_stats = {"hit_tokens": 0, "hit_pages": 0, "registered": 0}
+        use_spec = econf.spec_k >= 2
+        spec_stats = {"steps": 0, "accepted": 0}
 
         def requeue_evicted(evicted: List[int],
                             skip_slot: int = -1) -> List[int]:
@@ -304,8 +353,21 @@ class InferenceEngine:
                     break
                 base = max(0, len(req.tokens) - window)
                 bases[slot] = base
-                segs, evicted = mgr.append_tokens(slot,
-                                                  len(req.tokens) - base)
+                csl = 0
+                if prefix_on:
+                    # adopt the longest cached page chain matching the known
+                    # tokens (prompt + any generated before a preemption),
+                    # capped so that at least one token is prefilled
+                    hit = mgr.match_prefix(req.tokens)
+                    hit = hit[: (len(req.tokens) - 1) // page.page_size]
+                    if hit:
+                        mgr.adopt(slot, hit)
+                        csl = len(hit) * page.page_size
+                        prefix_stats["hit_pages"] += len(hit)
+                        prefix_stats["hit_tokens"] += csl
+                cached[slot] = csl
+                segs, evicted = mgr.append_tokens(
+                    slot, len(req.tokens) - base - csl)
                 # a victim may be an earlier admission of this same wave:
                 # drop it from the wave or its prefill would write K/V
                 # through a cleared block table
@@ -322,26 +384,49 @@ class InferenceEngine:
                 t_pf0 = time.monotonic()
                 group = admitted
                 Tb = _bucket(max(len(req.tokens) - bases[slot]
-                                 for slot, req in group))
+                                 - cached[slot] for slot, req in group))
                 Bg = 1 << (len(group) - 1).bit_length()
                 xs = np.zeros((Bg, Tb), np.int32)
                 valid = np.zeros((Bg, Tb), bool)
                 tables_g = np.zeros((Bg, pps), np.int32)
                 last = np.zeros(Bg, np.int64)
+                offs = np.zeros(Bg, np.int32)
                 for i, (slot, req) in enumerate(group):
-                    n = len(req.tokens) - bases[slot]
-                    xs[i, :n] = req.tokens[bases[slot]:]
+                    skip = bases[slot] + cached[slot]
+                    n = len(req.tokens) - skip
+                    xs[i, :n] = req.tokens[skip:]
                     valid[i, :n] = True
                     tables_g[i] = mgr.block_table_array(slot, pps)
                     last[i] = n - 1
-                pos = np.tile(np.arange(Tb, dtype=np.int32), (Bg, 1))
+                    offs[i] = cached[slot]      # page-aligned by adopt
+                pos = offs[:, None] + np.arange(Tb, dtype=np.int32)[None, :]
                 pg, sl = token_coords(torch.from_numpy(tables_g),
                                       torch.from_numpy(pos), page.page_size,
                                       torch.from_numpy(valid), page.num_pages)
-                logits, pool = gpt2_paged.prefill_paged(
-                    self._prefill_params or self.params,
-                    torch.from_numpy(xs), pg, sl, pool, cfg,
-                    last_pos=torch.from_numpy(last))            # (Bg, V)
+                if offs.any():
+                    # a row rides adopted pages: the suffix prefill attends
+                    # the cached prefix through the block table (rows with
+                    # offs 0 degenerate to plain prefill inside)
+                    logits, pool = gpt2_paged.prefill_suffix_paged(
+                        self._prefill_params or self.params,
+                        torch.from_numpy(xs), pg, sl, pool,
+                        torch.from_numpy(tables_g), torch.from_numpy(offs),
+                        cfg, last_pos=torch.from_numpy(last),
+                        use_kernel=self.use_kernel)             # (Bg, V)
+                    suffix_prefills += 1
+                else:
+                    logits, pool = gpt2_paged.prefill_paged(
+                        self._prefill_params or self.params,
+                        torch.from_numpy(xs), pg, sl, pool, cfg,
+                        last_pos=torch.from_numpy(last))        # (Bg, V)
+                if prefix_on:
+                    # publish this wave's full prompt pages only now, after
+                    # the call that writes their K/V is queued (a same-wave
+                    # evictee never prefills); the device runs in order,
+                    # so a later adopter's reads see these writes
+                    for slot, req in group:
+                        prefix_stats["registered"] += mgr.register_prompt(
+                            slot, req.tokens)
                 # pick on the device and fetch after the first chain link
                 # is queued, so the download overlaps decode
                 picks_d = torch.argmax(logits[: len(group)], dim=-1).int()
@@ -392,6 +477,147 @@ class InferenceEngine:
                 """One not-yet-appended token per slot with a deferred
                 prefill pick."""
                 return {s: 1 for s, _ in deferred[1]} if deferred else {}
+
+            # ---- speculative chunk chain (EngineConfig.spec_k) ---------
+            # Like the greedy chain below, but each device step VERIFIES
+            # spec_k tokens (carried token + device n-gram drafts) and
+            # yields 1..spec_k of them. Acceptance is data-dependent, so
+            # the host reserves the maximum (S*spec_k tokens a row a link)
+            # and rolls the manager back to the accepted length with
+            # truncate_to once the chain materializes.
+            if use_spec and sched.running:
+                flush_deferred()   # the spec chain reads req.tokens
+                S = max(1, econf.decode_chunk)
+                Ksp = econf.spec_k
+                TK = S * Ksp
+                ps = page.page_size
+                pending_spec: List = []   # (out dev, counts dev, plan)
+                t_cd0 = time.monotonic()
+                links = 0
+                hist_d = first_d = pos0_d = None
+                pre_len: Dict[int, int] = {}
+                gen_before = {s: len(r.generated)
+                              for s, r in sched.running.items()}
+                while True:
+                    plan: List[int] = []
+                    need_pages = 0
+                    for slot, req in sched.running.items():
+                        rem = req.max_new_tokens - gen_before[slot]
+                        if links * S >= rem:
+                            # >= 1 token is accepted a step: the row has
+                            # finished in earlier links
+                            continue
+                        ln = mgr.seq_len(slot)
+                        if ln + TK > page.max_context:
+                            continue   # no headroom for a full reservation
+                        tail = (ps - ln % ps) % ps
+                        need_pages += max(0, -(-(TK - tail) // ps))
+                        plan.append(slot)
+                    if not plan or need_pages > mgr.num_free():
+                        break
+                    for slot in plan:
+                        pre_len.setdefault(slot, mgr.seq_len(slot))
+                        segs, evicted = mgr.append_tokens(slot, TK)
+                        if evicted:
+                            raise RuntimeError(
+                                "free-page guard failed: eviction inside a "
+                                f"speculative chain (victims {evicted})")
+                    tables = np.zeros((B, pps), np.int32)
+                    for slot in plan:
+                        tables[slot] = mgr.block_table_array(slot, pps)
+                    if econf.debug_checks:
+                        _validate_indices(page, tables)
+                    keep = np.zeros(B, bool)
+                    keep[plan] = True
+                    if hist_d is None:
+                        hist = np.zeros((B, page.max_context + 1), np.int32)
+                        first = np.zeros(B, np.int32)
+                        pos0 = np.full(B, -1, np.int32)
+                        for slot in plan:
+                            req = sched.running[slot]
+                            hist[slot, : len(req.tokens)] = req.tokens
+                            first[slot] = req.tokens[-1]
+                            pos0[slot] = len(req.tokens) - 1
+                        hist_d, first_d, pos0_d = (
+                            gpt2_paged.to_device(torch.from_numpy(a), dev)
+                            for a in (hist, first, pos0))
+                    else:
+                        # deactivate rows that left the plan; a row never
+                        # re-enters mid-chain
+                        pos0_d = torch.where(
+                            gpt2_paged.to_device(torch.from_numpy(keep), dev),
+                            pos0_d, -1)
+                    out_d, counts_d, hist_d, first_d, pos0_d, pool = \
+                        gpt2_paged.decode_chunk_spec(
+                            self.params, first_d, pos0_d, hist_d, pool,
+                            torch.from_numpy(tables), cfg, num_steps=S,
+                            spec_k=Ksp, ngram=econf.spec_ngram,
+                            use_kernel=self.use_kernel, active=keep)
+                    decode_steps += S
+                    verify_steps += S
+                    pending_spec.append((out_d, counts_d, list(plan)))
+                    links += 1
+                    peak_pages = max(peak_pages,
+                                     page.num_pages - mgr.num_free())
+                    # acceptance is data-dependent: a row MAY have finished
+                    # once links*S*spec_k covers its remaining budget
+                    may_free = any(
+                        sched.running[s].max_new_tokens - gen_before[s]
+                        <= links * S * Ksp for s in plan)
+                    if stream_cap and links >= stream_cap:
+                        break
+                    if queue_blocked or (on_finish is not None
+                                         and may_free):
+                        # under queue pressure a row may finish at ANY
+                        # link: materialize so its slot and pages free
+                        break
+                tacc["chain_dispatch"] += time.monotonic() - t_cd0
+                if pending_spec:
+                    progressed = True
+                    t_m0 = time.monotonic()
+                    # one device→host copy for the whole chain: the tokens
+                    # and counts of every link in one tensor
+                    n_out = S * Ksp * B
+                    flat = torch.stack([
+                        torch.cat([o.reshape(-1), c.reshape(-1)])
+                        for o, c, _ in pending_spec]).cpu().numpy()
+                    tacc["materialize"] += time.monotonic() - t_m0
+                    all_out = flat[:, :n_out].reshape(-1, S, Ksp, B)
+                    all_cnt = flat[:, n_out:].reshape(-1, S, B)
+                    committed = {s: 0 for s in pre_len}
+                    for li, (_, _, plan) in enumerate(pending_spec):
+                        for slot in plan:
+                            req = sched.running[slot]
+                            for s_i in range(S):
+                                cnt = int(all_cnt[li, s_i, slot])
+                                req.generated.extend(
+                                    int(t)
+                                    for t in all_out[li, s_i, :cnt, slot])
+                            committed[slot] += int(all_cnt[li, :, slot].sum())
+                            spec_stats["steps"] += S
+                    for slot, pre in pre_len.items():
+                        req = sched.running[slot]
+                        spec_stats["accepted"] += committed[slot]
+                        mgr.truncate_to(slot, pre + committed[slot])
+                        if len(req.generated) > req.max_new_tokens:
+                            del req.generated[req.max_new_tokens:]
+                        apply_stop(req)
+                        decode_tokens += len(req.generated) - gen_before[slot]
+                    for slot in list(sched.running):
+                        if sched.running[slot].done:
+                            mgr.free_prompt(slot)
+                            finish_slot(slot)
+                    # a row still needing tokens but WITHOUT headroom for a
+                    # full reservation can never join a spec plan: fall
+                    # through to the plain chain for it, or it would starve
+                    if not any(
+                            r.max_new_tokens > len(r.generated)
+                            and mgr.seq_len(sl) + TK > page.max_context
+                            for sl, r in sched.running.items()):
+                        continue
+                # the spec chain could not run (pool pressure, no headroom):
+                # fall through to the plain chain, which needs fewer pages
+                # a link, and the single-token step below it
 
             dct = defer_counts()
             if sched.running:
@@ -616,5 +842,23 @@ class InferenceEngine:
             "t_prefill_dispatch_s": round(tacc["prefill_dispatch"], 4),
             "t_chain_dispatch_s": round(tacc["chain_dispatch"], 4),
             "t_materialize_s": round(tacc["materialize"], 4),
+            "verify_steps": verify_steps,
+            "suffix_prefills": suffix_prefills,
         }
+        if use_spec:
+            # spec_steps counts S per row per link; spec_tok_per_step is
+            # committed tokens per verify step (overshoot included): the
+            # raw acceptance of the drafting, in [1, spec_k]
+            self.stats["spec_steps"] = spec_stats["steps"]
+            self.stats["spec_tok_per_step"] = round(
+                spec_stats["accepted"] / spec_stats["steps"], 3) \
+                if spec_stats["steps"] else 0.0
+        if prefix_on:
+            # prompt tokens served from adopted pages (their prefill was
+            # skipped) and the cache's occupancy after the run
+            self.stats["prefix_hit_tokens"] = prefix_stats["hit_tokens"]
+            self.stats["prefix_hit_pages"] = prefix_stats["hit_pages"]
+            self.stats["prefix_pages_registered"] = \
+                prefix_stats["registered"]
+            self.stats["prefix_cached_pages"] = mgr.num_cached()
         return sched.finished

@@ -12,6 +12,9 @@ out. Torch has no scatter ``mode="drop"``: the sentinel rows are
 filtered out before each indexed write (on the CPU the write would raise
 and on the card it would land out of bounds). Coordinates built on the
 host (as the engine builds them) filter without a device sync.
+Coordinates built on the device (the speculative commit) hold no
+sentinel and pass ``sentinel=False``: nothing is filtered, so the write
+costs no sync either.
 
 Pool updates happen IN PLACE (the JAX package donates the pool and gets a
 new one back); the functions also return the updated tensors so call
@@ -161,11 +164,23 @@ def write_prompt_pages_quant(pool_l, k, v, page_ids):
     return pool_l
 
 
-def write_layer_kv(k_pool_l, v_pool_l, k_new, v_new, page, slot):
+def _rows(page, slot, num_pages, device, sentinel):
+    """(row selection, page ids, slots) of an indexed write. With
+    ``sentinel=False`` every coordinate is a real page: all rows are kept
+    and nothing is read back from the device."""
+    if sentinel:
+        sel, pg = _kept(page, num_pages, device)
+        return sel, pg, slot.reshape(-1).to(device)[sel].long()
+    return (slice(None), page.reshape(-1).to(device).long(),
+            slot.reshape(-1).to(device).long())
+
+
+def write_layer_kv(k_pool_l, v_pool_l, k_new, v_new, page, slot,
+                   sentinel=True):
     """Scatter new K/V rows (N, NH, HS) into one layer's pool at (N,)
     page/slot coordinates; sentinel rows are dropped. In place."""
-    sel, pg = _kept(page, k_pool_l.shape[0], k_pool_l.device)
-    sl = slot.reshape(-1).to(k_pool_l.device)[sel].long()
+    sel, pg, sl = _rows(page, slot, k_pool_l.shape[0], k_pool_l.device,
+                        sentinel)
     k_pool_l[pg, :, :, sl] = k_new.reshape(-1, *k_new.shape[-2:])[sel].to(
         k_pool_l.dtype)
     v_pool_l[pg, :, :, sl] = v_new.reshape(-1, *v_new.shape[-2:])[sel].to(
@@ -173,12 +188,11 @@ def write_layer_kv(k_pool_l, v_pool_l, k_new, v_new, page, slot):
     return k_pool_l, v_pool_l
 
 
-def write_layer_kv_quant(pool_l, k_new, v_new, page, slot):
+def write_layer_kv_quant(pool_l, k_new, v_new, page, slot, sentinel=True):
     """Quantize-and-scatter twin of write_layer_kv for an INT8 layer
     (k, v, k_scale, v_scale). In place."""
     k_l, v_l, ks_l, vs_l = pool_l
-    sel, pg = _kept(page, k_l.shape[0], k_l.device)
-    sl = slot.reshape(-1).to(k_l.device)[sel].long()
+    sel, pg, sl = _rows(page, slot, k_l.shape[0], k_l.device, sentinel)
     NH, HS = k_new.shape[-2:]
     kq, ks = quantize_rows(k_new.reshape(-1, NH, HS)[sel])
     vq, vs = quantize_rows(v_new.reshape(-1, NH, HS)[sel])
@@ -189,19 +203,23 @@ def write_layer_kv_quant(pool_l, k_new, v_new, page, slot):
     return pool_l
 
 
-def commit_layer_kv(k_pool_l, v_pool_l, tails_k, tails_v, pages, slots):
+def commit_layer_kv(k_pool_l, v_pool_l, tails_k, tails_v, pages, slots,
+                    sentinel=True):
     """Chunk commit of (K, B, NH, HS) tail K/V into one layer's float pool
     at (K, B) coordinates, as one direct indexed write (the JAX package's
     one-hot page blend exists only for XLA:TPU layouts; the values that
     land are the same). In place."""
-    return write_layer_kv(k_pool_l, v_pool_l, tails_k, tails_v, pages, slots)
+    return write_layer_kv(k_pool_l, v_pool_l, tails_k, tails_v, pages, slots,
+                          sentinel)
 
 
-def commit_layer_kv_quant(pool_l, tails_k, tails_v, pages, slots):
+def commit_layer_kv_quant(pool_l, tails_k, tails_v, pages, slots,
+                          sentinel=True):
     """INT8 twin of commit_layer_kv: per-token quantization (the formula
     of write_layer_kv_quant), then indexed writes of values and scales.
     In place."""
-    return write_layer_kv_quant(pool_l, tails_k, tails_v, pages, slots)
+    return write_layer_kv_quant(pool_l, tails_k, tails_v, pages, slots,
+                                sentinel)
 
 
 def quantize_pages(k_pages: torch.Tensor):

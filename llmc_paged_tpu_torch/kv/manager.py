@@ -1,6 +1,6 @@
-"""L3 host side: the KV block manager (a copy of the Python
-``BlockManager`` of llmc_paged_tpu/kv/manager.py; the prefix-caching
-manager and the native C++ twin are not in this slice of the port).
+"""L3 host side: the KV block managers (copies of the Python
+``BlockManager`` and ``PrefixCachingBlockManager`` of
+llmc_paged_tpu/kv/manager.py; the native C++ twin is not ported yet).
 
 Page *data* lives in the device pool (kv/layouts.py); this manager hands
 out page indices and keeps the metadata state machine:
@@ -244,3 +244,250 @@ class BlockManager:
             pg.filled += take
             remaining -= take
         return segments, evicted
+
+
+class PrefixCachingBlockManager(BlockManager):
+    """Opt-in extension (PageConfig.prefix_cache) BEYOND the reference:
+    content-addressed sharing of FULL prompt pages across sequences.
+
+    A shared page is pure host metadata — two block tables holding the
+    same page index — so a repeated prompt prefix (system prompt,
+    few-shot header) costs no device work to reuse: no KV copies; only
+    the unshared suffix is prefilled (models/gpt2_paged.py
+    prefill_suffix_paged attends the cached prefix through the same
+    block table, with the multi-query parts kernel).
+
+    State model (page-granular, vLLM-style automatic prefix caching):
+      * every page tracks its holder set (sequences whose table contains
+        it); `filled`/`lru_counter` keep their base-class meaning
+      * a FULL page whose token content is known gets a chain key = the
+        ENTIRE token prefix through that page (a tuple) — prefix-dependent
+        by construction, so only true PREFIX matches ever share; dict
+        lookup compares content on hash collision, so matching is EXACT
+        (never probabilistic — host memory for the keys is trivial next
+        to the device pool)
+      * free_prompt drops one holder; a hashed page with no holders left
+        DEMOTES to the cache (contents intact, reclaimable) instead of
+        freeing
+      * allocation order: truly-free page → reclaim the LRU cached page →
+        the reference's LRU whole-prompt eviction, restricted to
+        single-holder pages (a shared page is in use by ≥2 live
+        sequences; evicting one holder could not free it anyway)
+      * release_below (sliding window) is rejected: the engine layer
+        forbids combining prefix caching with window serving
+
+    The base state machine is untouched — this class is only used when
+    PageConfig.prefix_cache is set. State for state, it equals the JAX
+    package's class (tests/test_torch_prefix.py runs both side by
+    side)."""
+
+    def __init__(self, num_pages: int = 100, page_size: int = 32,
+                 max_seqs: int = 100):
+        super().__init__(num_pages, page_size, max_seqs)
+        self.holders: List[set] = [set() for _ in range(num_pages)]
+        self.hashes: List[Optional[tuple]] = [None] * num_pages
+        self.cache: Dict[tuple, int] = {}      # prefix-content key -> page
+
+    # -- content keys ---------------------------------------------------
+
+    def _chain_keys(self, tokens) -> List[tuple]:
+        """Content key per FULL page of `tokens`: the whole token prefix
+        through that page, as a tuple (page j -> tokens[:(j+1)*ps])."""
+        ps = self.page_size
+        return [tuple(tokens[:(j + 1) * ps])
+                for j in range(len(tokens) // ps)]
+
+    # -- queries --------------------------------------------------------
+
+    def num_free(self) -> int:
+        """Pages allocatable on demand: truly free + cached (a cached page
+        is reclaimed transparently by request_block)."""
+        return sum(1 for i in range(self.num_pages) if not self.holders[i])
+
+    def num_cached(self) -> int:
+        return sum(1 for i in range(self.num_pages)
+                   if not self.holders[i] and self.hashes[i] is not None)
+
+    def match_prefix(self, tokens) -> List[int]:
+        """Longest chain of cached/live pages whose content equals the
+        page-aligned prefix of `tokens`. Returns their page ids in order
+        (possibly empty). Pure lookup — adopt() takes the refs."""
+        out = []
+        for h in self._chain_keys(tokens):
+            pid = self.cache.get(h)
+            if pid is None:
+                break
+            out.append(pid)
+        return out
+
+    # -- sharing --------------------------------------------------------
+
+    def adopt(self, prompt_id: int, page_ids: List[int]) -> None:
+        """Map already-resident pages (from match_prefix) into
+        `prompt_id`'s table as its prefix. The sequence must be fresh."""
+        if not (0 <= prompt_id < self.max_seqs):
+            raise ValueError(f"invalid prompt id {prompt_id}")
+        if self.tables.get(prompt_id):
+            raise ValueError(f"adopt() on non-empty prompt {prompt_id}")
+        for pid in page_ids:
+            if self.hashes[pid] is None or \
+                    self.pages[pid].filled != self.page_size:
+                # data-integrity guard, not a debug assert (must hold
+                # under python -O): adopting a reclaimed/partial page
+                # would shift position accounting and attend garbage KV
+                raise ValueError(f"adopt: page {pid} is not a published "
+                                 "full prefix page")
+            self.holders[pid].add(prompt_id)
+            self.lru_epoch += 1
+            self.pages[pid].lru_counter = self.lru_epoch
+            if self.pages[pid].prompt_id == -1:
+                self.pages[pid].prompt_id = prompt_id
+            self.tables.setdefault(prompt_id, []).append(pid)
+
+    def register_prompt(self, prompt_id: int, tokens) -> int:
+        """Hash `prompt_id`'s pages that are FULLY covered by `tokens`
+        (its prompt) and publish them for future match_prefix. Pages whose
+        content already exists in the cache under another id are left
+        unhashed (first page wins; duplicates free normally). Returns the
+        number of pages newly published."""
+        table = self.tables.get(prompt_id, [])
+        added = 0
+        for j, h in enumerate(self._chain_keys(tokens)):
+            if j >= len(table):
+                break
+            pid = table[j]
+            if self.hashes[pid] is not None:
+                # adopted (same chain ⇒ same hash) or already registered
+                continue
+            if h in self.cache:
+                continue
+            self.hashes[pid] = h
+            self.cache[h] = pid
+            added += 1
+        return added
+
+    # -- mutation overrides ----------------------------------------------
+
+    def _find_free(self) -> int:
+        return next((i for i in range(self.num_pages)
+                     if not self.holders[i] and self.hashes[i] is None), -1)
+
+    def _reclaim_cached(self) -> bool:
+        """Drop one cached (holderless, hashed) page back to FREE —
+        DEEPEST chain page first (longest content key), LRU among equal
+        depths. Head-first (plain LRU) reclaim would be pathological:
+        page 0 of a chain always has the lowest counter (adoption touches
+        ascending), yet dropping it makes every descendant unreachable by
+        match_prefix while still occupying the pool — maximum lost hits,
+        minimum freed value. Tail-first keeps the chain's head prefix
+        matchable."""
+        victim, best = -1, None
+        for i in range(self.num_pages):
+            if not self.holders[i] and self.hashes[i] is not None:
+                rank = (-len(self.hashes[i]), self.pages[i].lru_counter)
+                if best is None or rank < best:
+                    best = rank
+                    victim = i
+        if victim == -1:
+            return False
+        del self.cache[self.hashes[victim]]
+        self.hashes[victim] = None
+        self.pages[victim] = PageMeta()
+        return True
+
+    def _find_lru(self) -> int:
+        """LRU victim among SINGLE-holder pages only (shared pages are in
+        use by several live sequences; cached pages are reclaimed by
+        _reclaim_cached before eviction is ever attempted)."""
+        victim, bound = -1, self.lru_epoch
+        for i, pg in enumerate(self.pages):
+            if len(self.holders[i]) == 1 and pg.lru_counter < bound:
+                bound = pg.lru_counter
+                victim = i
+        return victim
+
+    def _page_out_lru(self) -> List[int]:
+        victim = self._find_lru()
+        if victim == -1:
+            return []
+        prompt = min(self.holders[victim])   # single holder by _find_lru
+        self.free_prompt(prompt)
+        return [prompt]
+
+    def request_block(self, prompt_id: int) -> Tuple[Optional[int], List[int]]:
+        if not (0 <= prompt_id < self.max_seqs):
+            raise ValueError(f"invalid prompt id {prompt_id}")
+        evicted: List[int] = []
+        idx = self._find_free()
+        if idx == -1 and self._reclaim_cached():
+            idx = self._find_free()
+        if idx == -1:
+            evicted = self._page_out_lru()
+            if self._find_free() == -1:
+                self._reclaim_cached()   # eviction may demote hashed pages
+            idx = self._find_free()
+            if idx == -1:
+                return None, evicted
+        self.lru_epoch += 1
+        self.pages[idx] = PageMeta(prompt_id=prompt_id, filled=0,
+                                   lru_counter=self.lru_epoch)
+        self.holders[idx] = {prompt_id}
+        self.tables.setdefault(prompt_id, []).append(idx)
+        return idx, evicted
+
+    def _drop_holder(self, pid: int, prompt_id: int) -> None:
+        hs = self.holders[pid]
+        hs.discard(prompt_id)
+        if not hs:
+            if self.hashes[pid] is not None:
+                # demote to cache: contents stay resident and reusable
+                self.pages[pid].prompt_id = -1
+            else:
+                self.pages[pid] = PageMeta()
+        elif self.pages[pid].prompt_id == prompt_id:
+            # deterministic choice (min): the JAX package's managers
+            # report the same page metas
+            self.pages[pid].prompt_id = min(hs)
+
+    def free_prompt(self, prompt_id: int) -> None:
+        for pid in self.tables.get(prompt_id, []):
+            if pid >= 0:
+                self._drop_holder(pid, prompt_id)
+        self.tables[prompt_id] = []
+
+    def release_below(self, prompt_id: int, start_pos: int) -> int:
+        raise RuntimeError("prefix caching is incompatible with "
+                           "sliding-window page reclamation (the engine "
+                           "forbids combining them)")
+
+    def truncate_to(self, prompt_id: int, new_len: int) -> int:
+        """Same contract as the base class; trailing pages must be
+        exclusively held (speculative reservations always are — they are
+        appended past the prompt by this sequence alone)."""
+        table = self.tables.get(prompt_id, [])
+        cur = self.seq_len(prompt_id)
+        if not (0 <= new_len <= cur):
+            raise ValueError(f"truncate_to({new_len}) outside [0, {cur}]")
+        if new_len == cur:
+            return 0
+        keep = -(-new_len // self.page_size)
+        for j in range(keep, len(table)):
+            if len(self.holders[table[j]]) > 1 or \
+                    self.hashes[table[j]] is not None:
+                raise ValueError(
+                    f"truncate_to would free shared/cached page {table[j]}")
+        new_fill = new_len - (keep - 1) * self.page_size
+        if new_len > 0 and new_fill < self.page_size:
+            last = table[keep - 1]
+            if len(self.holders[last]) > 1 or self.hashes[last] is not None:
+                raise ValueError(
+                    f"truncate_to would shorten shared/cached page {last}")
+        freed = 0
+        for j in range(len(table) - 1, keep - 1, -1):
+            self.holders[table[j]] = set()
+            self.pages[table[j]] = PageMeta()
+            freed += 1
+            table.pop()
+        if new_len > 0:
+            self.pages[table[keep - 1]].filled = new_fill
+        return freed

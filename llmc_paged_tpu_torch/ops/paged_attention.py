@@ -1,13 +1,17 @@
-"""Paged flash-decode attention: the hand-written CUDA kernel and its plain
-PyTorch versions (port of llmc_paged_tpu/ops/paged_attention.py, the
-single-query parts path).
+"""Paged flash-decode attention: the hand-written CUDA kernels and their
+plain PyTorch versions (port of llmc_paged_tpu/ops/paged_attention.py,
+the single-query and multi-query parts paths).
 
-The kernel (``csrc/paged_attention.cu``) computes the JAX package's PARTS
-contract: for each row, single-query attention over the row's live pages
-[start//ps, (len-1)//ps] read through the block table, positions outside
-[start, len) masked, returning UNNORMALIZED online-softmax parts
-(acc (B,NH,HS) f32, m (B,NH) f32, l (B,NH) f32). The decode chunk merges
-them with its in-flight tail; the normalized wrappers divide by l.
+The kernels compute the JAX package's PARTS contract: for each row,
+attention over the row's live pages [start//ps, (len-1)//ps] read
+through the block table, positions outside [start, len) masked,
+returning UNNORMALIZED online-softmax parts. ``csrc/paged_attention.cu``
+takes one query per row (acc (B,NH,HS) f32, m/l (B,NH) f32); the decode
+chunk merges its parts with the in-flight tail and the normalized
+wrappers divide by l. ``csrc/paged_attention_mq.cu`` takes KQ queries per
+row that all attend the same committed range, with no causal mask inside
+the pool (acc (B,KQ,NH,HS) f32, m/l (B,KQ,NH) f32): speculative verify
+and suffix prefill merge them with their causal in-flight block.
 
 Dispatch: a tensor on the CPU goes to the plain version; a tensor on the
 card launches the kernel or raises — there is no fallback. Each launch
@@ -30,10 +34,18 @@ NEG_INF = -1e30
 
 # launches of the CUDA kernel, by wrapper (plain ints; reset by callers)
 LAUNCHES = {"paged_decode_attention_parts": 0,
-            "paged_decode_attention_quant_parts": 0}
+            "paged_decode_attention_quant_parts": 0,
+            "paged_decode_attention_parts_mq": 0,
+            "paged_decode_attention_quant_parts_mq": 0}
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # the .cu enum
 _MAX_SMEM = 48 * 1024
+# the multi-query kernel opts in to more dynamic shared memory (Hopper:
+# 227 KB a block)
+_MAX_SMEM_MQ = 232448
+# queries a multi-query block scores against one staged page (the .cu's
+# QT): one tile covers any spec_k up to 16
+MQ_TILE = 16
 
 
 # ---- plain PyTorch versions -------------------------------------------------
@@ -75,6 +87,41 @@ def paged_decode_attention_quant_parts_ref(q, k_pages, v_pages, k_scale,
     return _parts_from_dense(q, k, v, lengths, starts)
 
 
+def _parts_from_dense_mq(q, k, v, lengths, starts):
+    """Multi-query twin of _parts_from_dense: q (B, KQ, NH, HS) over
+    gathered dense KV (B, NH, S, HS) → acc (B,KQ,NH,HS), m/l (B,KQ,NH)."""
+    B, NH, S, HS = k.shape
+    qf = q.float()
+    scale = float(torch.rsqrt(torch.tensor(float(HS))))
+    scores = torch.einsum("bqhd,bhkd->bhqk", qf, k.float()) * scale
+    pos = torch.arange(S, device=q.device).view(1, 1, 1, S)
+    valid = pos < lengths.view(B, 1, 1, 1)
+    if starts is not None:
+        valid = valid & (pos >= starts.view(B, 1, 1, 1))
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(dim=-1)                       # (B, NH, KQ)
+    p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bhkd->bqhd", p, v.float())
+    return acc, m.transpose(1, 2), l.transpose(1, 2)
+
+
+def paged_decode_attention_parts_mq_ref(q, k_pages, v_pages, block_tables,
+                                        lengths, starts=None):
+    """Plain version of paged_decode_attention_parts_mq."""
+    k, v = gather_layer_kv(k_pages, v_pages, block_tables)
+    return _parts_from_dense_mq(q, k, v, lengths, starts)
+
+
+def paged_decode_attention_quant_parts_mq_ref(q, k_pages, v_pages, k_scale,
+                                              v_scale, block_tables, lengths,
+                                              starts=None):
+    """Plain version of paged_decode_attention_quant_parts_mq."""
+    k, v = gather_layer_kv(dequant_layer(k_pages, k_scale),
+                           dequant_layer(v_pages, v_scale), block_tables)
+    return _parts_from_dense_mq(q, k, v, lengths, starts)
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
                                starts=None):
     """Plain normalized attention over the gathered pool (the JAX
@@ -94,13 +141,18 @@ def paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
 
 # ---- the CUDA kernel --------------------------------------------------------
 
-def _kernel_fn():
+def _kernel_fn(mq: bool):
     from llmc_paged_tpu_torch.ops import _build
 
-    fn = _build.load("paged_attention").flash_decode_parts
+    if mq:
+        fn = _build.load("paged_attention_mq").flash_decode_parts_mq
+        n_int = 7           # B, KQ, NH, HS, ps, pps, qtile
+    else:
+        fn = _build.load("paged_attention").flash_decode_parts
+        n_int = 5           # B, NH, HS, ps, pps
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i32, i32] + [ptr] * 11 + [i32] * 5
+        fn.argtypes = ([i32, i32] + [ptr] * 11 + [i32] * n_int
                        + [ctypes.c_float, ptr])
         fn.restype = i32
     return fn
@@ -117,19 +169,35 @@ def _check(name, t, dtypes, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(wrapper, q, k_pages, v_pages, scales, block_tables, lengths,
-            starts):
-    """Validate, allocate the outputs and launch the kernel on the current
-    stream. Raises on anything the kernel does not take."""
+def _mq_smem_bytes(qtile: int, HS: int, ps: int) -> int:
+    """Dynamic shared memory of one multi-query block (the .cu's layout):
+    q and acc (qtile*HS each), the staged K page (HS*ps) and V page
+    (HS*(ps+1), padded against bank conflicts), scores (qtile*ps), the
+    page's scales (2*ps) and per-query m, l, alpha (3*qtile), all f32."""
+    return 4 * (2 * qtile * HS + HS * ps + HS * (ps + 1) + qtile * ps
+                + 2 * ps + 3 * qtile)
+
+
+def _launch(wrapper, mq, q, k_pages, v_pages, scales, block_tables,
+            lengths, starts):
+    """Validate, allocate the outputs and launch a kernel on the current
+    stream: the single-query kernel (q (B, NH, HS)) or, with ``mq``, the
+    multi-query kernel (q (B, KQ, NH, HS)). Raises on anything the kernel
+    does not take."""
     dev = q.device
-    if q.dim() != 3 or k_pages.dim() != 4:
-        raise ValueError("q must be (B, NH, HS) and pages (P, NH, HS, ps)")
-    B, NH, HS = q.shape
+    if q.dim() != (4 if mq else 3) or k_pages.dim() != 4:
+        raise ValueError(("q must be (B, KQ, NH, HS)" if mq else
+                          "q must be (B, NH, HS)")
+                         + " and pages (P, NH, HS, ps)")
+    if mq:
+        B, KQ, NH, HS = q.shape
+    else:
+        (B, NH, HS), KQ = q.shape, 1
     P, _, _, ps = k_pages.shape
     pps = block_tables.shape[-1]
     quant = scales is not None
     kv_dtypes = (torch.int8,) if quant else (torch.float32, torch.bfloat16)
-    _check("q", q, (torch.float32, torch.bfloat16), (B, NH, HS), dev)
+    _check("q", q, (torch.float32, torch.bfloat16), q.shape, dev)
     _check("k_pages", k_pages, kv_dtypes, (P, NH, HS, ps), dev)
     _check("v_pages", v_pages, (k_pages.dtype,), (P, NH, HS, ps), dev)
     _check("block_tables", block_tables, (torch.int32,), (B, pps), dev)
@@ -138,16 +206,22 @@ def _launch(wrapper, q, k_pages, v_pages, scales, block_tables, lengths,
     if quant:
         for nm, s in zip(("k_scale", "v_scale"), scales):
             _check(nm, s, (torch.float32,), (P, NH, ps), dev)
-    if 4 * (2 * HS + ps + 4) > _MAX_SMEM:
+    qtile = max(1, min(KQ, MQ_TILE))
+    if mq and _mq_smem_bytes(qtile, HS, ps) > _MAX_SMEM_MQ:
+        raise ValueError(f"page_size {ps} / head_dim {HS} exceed the "
+                         "multi-query kernel's shared memory")
+    if not mq and 4 * (2 * HS + ps + 4) > _MAX_SMEM:
         raise ValueError(f"page_size {ps} / head_dim {HS} exceed the "
                          "kernel's shared memory")
-    acc = torch.empty((B, NH, HS), dtype=torch.float32, device=dev)
-    m = torch.empty((B, NH), dtype=torch.float32, device=dev)
-    l = torch.empty((B, NH), dtype=torch.float32, device=dev)
-    if B == 0 or NH == 0:
+    lead = (B, KQ) if mq else (B,)
+    acc = torch.empty((*lead, NH, HS), dtype=torch.float32, device=dev)
+    m = torch.empty((*lead, NH), dtype=torch.float32, device=dev)
+    l = torch.empty((*lead, NH), dtype=torch.float32, device=dev)
+    if B == 0 or NH == 0 or KQ == 0:
         return acc, m, l
     ks, vs = scales if quant else (None, None)
-    fn = _kernel_fn()
+    fn = _kernel_fn(mq)
+    dims = (B, KQ, NH, HS, ps, pps, qtile) if mq else (B, NH, HS, ps, pps)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(_KIND[q.dtype], _KIND[k_pages.dtype], q.data_ptr(),
@@ -156,11 +230,9 @@ def _launch(wrapper, q, k_pages, v_pages, scales, block_tables, lengths,
                 vs.data_ptr() if quant else None,
                 block_tables.data_ptr(), lengths.data_ptr(),
                 starts.data_ptr(), acc.data_ptr(), m.data_ptr(),
-                l.data_ptr(), B, NH, HS, ps, pps,
-                1.0 / math.sqrt(HS), stream)
+                l.data_ptr(), *dims, 1.0 / math.sqrt(HS), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_decode_parts launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"{wrapper} launch failed: CUDA error {rc}")
     LAUNCHES[wrapper] += 1
     return acc, m, l
 
@@ -187,8 +259,8 @@ def paged_decode_attention_parts(q, k_pages, v_pages, block_tables, lengths,
     if _route(q) == "cpu":
         return paged_decode_attention_parts_ref(q, k_pages, v_pages,
                                                 block_tables, lengths, starts)
-    return _launch("paged_decode_attention_parts", q, k_pages, v_pages, None,
-                   block_tables, lengths, starts)
+    return _launch("paged_decode_attention_parts", False, q, k_pages,
+                   v_pages, None, block_tables, lengths, starts)
 
 
 def paged_decode_attention_quant_parts(q, k_pages, v_pages, k_scale, v_scale,
@@ -201,8 +273,42 @@ def paged_decode_attention_quant_parts(q, k_pages, v_pages, k_scale, v_scale,
         return paged_decode_attention_quant_parts_ref(
             q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
             starts)
-    return _launch("paged_decode_attention_quant_parts", q, k_pages, v_pages,
-                   (k_scale, v_scale), block_tables, lengths, starts)
+    return _launch("paged_decode_attention_quant_parts", False, q, k_pages,
+                   v_pages, (k_scale, v_scale), block_tables, lengths,
+                   starts)
+
+
+def paged_decode_attention_parts_mq(q, k_pages, v_pages, block_tables,
+                                    lengths, starts=None):
+    """Multi-query flash-decode over a float/bf16 paged pool: q is
+    (B, KQ, NH, HS), KQ query tokens per row that all attend the same
+    committed range [starts, lengths) (no causal mask inside the pool),
+    returning UNNORMALIZED parts (acc (B,KQ,NH,HS) f32, m/l (B,KQ,NH)
+    f32). On the card one page walk serves a tile of up to MQ_TILE
+    queries; any KQ is taken."""
+    if starts is None:
+        starts = torch.zeros_like(lengths)
+    if _route(q) == "cpu":
+        return paged_decode_attention_parts_mq_ref(
+            q, k_pages, v_pages, block_tables, lengths, starts)
+    return _launch("paged_decode_attention_parts_mq", True, q, k_pages,
+                   v_pages, None, block_tables, lengths, starts)
+
+
+def paged_decode_attention_quant_parts_mq(q, k_pages, v_pages, k_scale,
+                                          v_scale, block_tables, lengths,
+                                          starts=None):
+    """INT8-KV multi-query parts (see paged_decode_attention_parts_mq);
+    scales fold in after the dots, as in the single-query kernel."""
+    if starts is None:
+        starts = torch.zeros_like(lengths)
+    if _route(q) == "cpu":
+        return paged_decode_attention_quant_parts_mq_ref(
+            q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
+            starts)
+    return _launch("paged_decode_attention_quant_parts_mq", True, q,
+                   k_pages, v_pages, (k_scale, v_scale), block_tables,
+                   lengths, starts)
 
 
 def _normalize(acc, l, dtype):

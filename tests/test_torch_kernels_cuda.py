@@ -1,5 +1,6 @@
-"""The CUDA flash-decode parts kernel against its plain PyTorch version,
-on the card (marked ``cuda``; skipped where there is no GPU).
+"""The CUDA flash-decode parts kernels (single-query and multi-query)
+against their plain PyTorch versions, on the card (marked ``cuda``;
+skipped where there is no GPU).
 
 This file imports no JAX, so it also runs on a GPU machine without it:
 
@@ -40,18 +41,22 @@ def _case(ps, quant, seed=0, B=5, pps=4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int8-qbf16"])
 @pytest.mark.parametrize("ps", [8, 32, 128])
 def test_kernel_matches_plain_on_the_card(cuda, kv, ps):  # noqa: F811
     """CUDA kernel vs plain version on the same tensors; bf16 pools are
     compared with the plain version over the same bf16 values (it upcasts
-    to f32). Tolerance 1e-4 abs + 1e-4 rel: f32 sums in another order."""
-    q, pool, tables, lengths, starts = _case(ps, kv == "int8", seed=11)
+    to f32); "int8-qbf16" is the int8 pool under the bf16 q the headline
+    engine sends. Tolerance 1e-4 abs + 1e-4 rel: f32 sums in another
+    order."""
+    quant = kv.startswith("int8")
+    q, pool, tables, lengths, starts = _case(ps, quant, seed=11)
     a = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
          for x in (q, *pool, tables, lengths, starts)]
+    if kv == "int8-qbf16":
+        a[0] = a[0].to(torch.bfloat16)
     if kv == "bfloat16":
         a[1], a[2] = a[1].to(torch.bfloat16), a[2].to(torch.bfloat16)
-    quant = kv == "int8"
     fn = T.paged_decode_attention_quant_parts if quant \
         else T.paged_decode_attention_parts
     ref_fn = T.paged_decode_attention_quant_parts_ref if quant \
@@ -81,3 +86,63 @@ def test_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
     with pytest.raises(ValueError, match="is on"):
         T.paged_decode_attention_parts(q, k, v, tables.cpu(), lengths,
                                        starts)
+
+
+def _mq_case(ps, KQ, quant, seed=0, B=5, pps=4):
+    """The single-query case's pool, lengths and starts with KQ queries a
+    row."""
+    q1, pool, tables, lengths, starts = _case(ps, quant, seed, B, pps)
+    rng = np.random.default_rng(seed + 1)
+    q = rng.standard_normal((B, KQ, NH, HS)).astype(np.float32)
+    return q, pool, tables, lengths, starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int8-qbf16"])
+@pytest.mark.parametrize("ps,KQ", [(8, 3), (32, 1), (128, 4), (32, 37),
+                                   (128, 96)])
+def test_mq_kernel_matches_plain_on_the_card(cuda, kv, ps, KQ):  # noqa: F811
+    """Multi-query kernel vs its plain version: one query tile (KQ <= 16)
+    and several (37, 96 — above the TPU kernel's 64), ragged, zero and
+    windowed rows; "int8-qbf16" is the int8 pool under the bf16 q of the
+    headline's spec verify and suffix prefill. Tolerance 1e-4 abs + 1e-4
+    rel (f32 sums in another order)."""
+    quant = kv.startswith("int8")
+    q, pool, tables, lengths, starts = _mq_case(ps, KQ, quant, seed=5)
+    a = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+         for x in (q, *pool, tables, lengths, starts)]
+    if kv in ("bfloat16", "int8-qbf16"):
+        a[0] = a[0].to(torch.bfloat16)
+    if kv == "bfloat16":
+        a[1], a[2] = a[1].to(torch.bfloat16), a[2].to(torch.bfloat16)
+    fn = T.paged_decode_attention_quant_parts_mq if quant \
+        else T.paged_decode_attention_parts_mq
+    ref_fn = T.paged_decode_attention_quant_parts_mq_ref if quant \
+        else T.paged_decode_attention_parts_mq_ref
+    name = ("paged_decode_attention_quant_parts_mq" if quant
+            else "paged_decode_attention_parts_mq")
+    before = T.LAUNCHES[name]
+    got = fn(*a)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[name] == before + 1
+    assert got[0].shape == (q.shape[0], KQ, NH, HS)
+    for g, r in zip(got, ref_fn(*a)):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mq_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
+    q, pool, tables, lengths, starts = _mq_case(8, 4, False)
+    q, k, v, tables, lengths, starts = (
+        torch.from_numpy(x).to(cuda)
+        for x in (q, *pool, tables, lengths, starts))
+    with pytest.raises(ValueError, match="KQ"):
+        T.paged_decode_attention_parts_mq(q[:, 0], k, v, tables, lengths,
+                                          starts)
+    with pytest.raises(TypeError):
+        T.paged_decode_attention_parts_mq(q, k.half(), v.half(), tables,
+                                          lengths, starts)
+    big = torch.zeros(2, NH, HS, 1024, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        T.paged_decode_attention_parts_mq(q[:1], big, big, tables[:1, :1],
+                                          lengths[:1], starts[:1])

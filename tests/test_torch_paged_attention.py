@@ -4,8 +4,10 @@ On the CPU: the plain parts (float and int8 pools) against the JAX
 package's paged_decode_attention[_quant]_parts_xla at atol 1e-5, over
 ragged and zero lengths, window starts and fully masked pages, ps in
 {8, 32, 128}; one tiny ps=128 case against the JAX flat Pallas kernel in
-interpret mode. The CUDA kernel against the plain version is in
-test_torch_kernels_cuda.py (it runs on the card).
+interpret mode. The same for the multi-query parts (KQ queries a row,
+against paged_decode_attention[_quant]_parts_mq_xla and the JAX flat mq
+kernel in interpret mode). The CUDA kernels against the plain versions
+are in test_torch_kernels_cuda.py (they run on the card).
 """
 
 import jax.numpy as jnp
@@ -114,3 +116,79 @@ def test_cpu_route_counts_no_launch():
     T.LAUNCHES["paged_decode_attention_parts"] = 0
     _port_parts(*_case(8, False))
     assert T.LAUNCHES["paged_decode_attention_parts"] == 0
+
+
+def _mq_case(ps, KQ, quant, seed):
+    q1, pool, tables, lengths, starts = _case(ps, quant, seed=seed)
+    q = np.random.default_rng(seed + 1).standard_normal(
+        (q1.shape[0], KQ, NH, HS)).astype(np.float32)
+    return q, pool, tables, lengths, starts
+
+
+def _jax_parts_mq(q, pool, tables, lengths, starts):
+    a = [jnp.asarray(x) for x in (q, *pool, tables, lengths, starts)]
+    fn = (J.paged_decode_attention_quant_parts_mq_xla if len(pool) == 4
+          else J.paged_decode_attention_parts_mq_xla)
+    return [np.asarray(o) for o in fn(*a)]
+
+
+def _port_parts_mq(q, pool, tables, lengths, starts):
+    a = [torch.from_numpy(np.ascontiguousarray(x))
+         for x in (q, *pool, tables, lengths, starts)]
+    fn = (T.paged_decode_attention_quant_parts_mq if len(pool) == 4
+          else T.paged_decode_attention_parts_mq)
+    return [t.numpy() for t in fn(*a)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("KQ", [1, 3, 16])
+@pytest.mark.parametrize("ps", [8, 32, 128])
+def test_parts_mq_plain_matches_jax(ps, KQ, quant):
+    """Ragged, zero-length, windowed and fully masked rows; every query
+    of a row attends the same range."""
+    case = _mq_case(ps, KQ, quant, seed=ps + KQ)
+    ref = _jax_parts_mq(*case)
+    got = _port_parts_mq(*case)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g, r, atol=ATOL, rtol=1e-6)
+    acc, m, l = got
+    assert acc.shape == (5, KQ, NH, HS) and m.shape == (5, KQ, NH)
+    assert np.all(m[1] == T.NEG_INF) and np.all(l[1] == 0)   # length 0
+    assert np.all(m[3] == T.NEG_INF) and np.all(acc[3] == 0)  # masked row
+
+
+def test_parts_mq_plain_is_single_query_per_query():
+    """Each query of the multi-query parts equals the single-query parts
+    of that query alone (the pool part has no causal structure)."""
+    q, pool, tables, lengths, starts = _mq_case(32, 3, True, seed=2)
+    got = _port_parts_mq(q, pool, tables, lengths, starts)
+    for j in range(3):
+        one = _port_parts(q[:, j], pool, tables, lengths, starts)
+        for g, o in zip(got, one):
+            np.testing.assert_allclose(g[:, j], o.numpy(), atol=ATOL,
+                                       rtol=1e-6)
+
+
+def test_parts_mq_plain_matches_jax_mq_kernel_interpret():
+    """One tiny ps=128 case against the JAX flat multi-query Pallas kernel
+    run in interpret mode (slow, hence one case)."""
+    q, pool, tables, lengths, starts = _mq_case(128, 3, False, seed=4)
+    q, tables = q[:2], tables[:2]
+    lengths = np.array([200, 0], np.int32)
+    starts = np.array([100, 0], np.int32)
+    a = [jnp.asarray(x) for x in (q, *pool, tables, lengths, starts)]
+    ref = J.paged_decode_attention_parts_mq(*a, interpret=True)
+    got = _port_parts_mq(q, pool, tables, lengths, starts)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, np.asarray(r), atol=ATOL, rtol=1e-6)
+
+
+def test_cpu_route_counts_no_mq_launch():
+    for k in ("paged_decode_attention_parts_mq",
+              "paged_decode_attention_quant_parts_mq"):
+        T.LAUNCHES[k] = 0
+    _port_parts_mq(*_mq_case(8, 2, False, seed=0))
+    _port_parts_mq(*_mq_case(8, 2, True, seed=0))
+    assert T.LAUNCHES["paged_decode_attention_parts_mq"] == 0
+    assert T.LAUNCHES["paged_decode_attention_quant_parts_mq"] == 0
