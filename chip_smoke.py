@@ -7,15 +7,18 @@ Phases (any failed check raises, and the script exits non-zero):
   1. device: name, power limit, torch/CUDA versions; TF32 off;
   2. build: the CUDA kernels from the sources in the checkout, one nvcc
      per source, all started together;
-  3. kernels vs plain versions: the flash-decode parts kernel and the
-     multi-query parts kernel against their plain PyTorch versions for
+  3. kernels vs plain versions: the flash-decode parts kernel, the
+     multi-query parts kernel and the normalized grid kernel against their
+     plain PyTorch versions for
      f32, bf16 and int8 pools at the GPT-2 124M head shapes (q f32 over
      f32 pools, bf16 over bf16 and int8 pools as the headline sends it,
      and f32 over int8 pools), with ragged
      and zero lengths, window starts, ps=32 and B*pps > 4096; the
      multi-query kernel also at the spec-verify shape (KQ=4), KQ=1 and
-     suffix shapes (KQ=32, and KQ=96 above the TPU kernel's 64); times
-     from CUDA events beside the bound;
+     suffix shapes (KQ=32, and KQ=96 above the TPU kernel's 64); the grid
+     kernel at the CLI's shape (B=8, ps=32, pps=32, P=128, lengths
+     65-128) and at ps 8, 16 and 96 with zero, start >= length and
+     windowed rows; times from CUDA events beside the bound;
   4. engine, headline config: GPT-2 124M (seeded random weights) served
      by InferenceEngine.run with int8 weights, int8 KV, bf16 activations,
      a bf16 prefill copy, page_size 128 and greedy 16-token chunks;
@@ -33,7 +36,17 @@ Phases (any failed check raises, and the script exits non-zero):
      suffixes, one engine run twice (int8 headline and fp32): run 2
      adopts 16 pages, multi-query launches = L x suffix prefills,
      fp32 streams against a no-prefix engine; one prefill_suffix_paged
-     against prefill_paged.
+     against prefill_paged;
+  9. the CLI (engine/cli.py main, in process): a GPT-2 124M checkpoint
+     (seeded random weights), a token stream and byte_fallback_table(50257)
+     written to a temporary directory; the reference defaults (page size
+     32, 128 pages, 32 pages a sequence, fp32, seed 1337) with 8 rows of
+     64-token prompts, 64 new tokens, top-k 40 through the xorshift
+     sampler; grid launches = L x single-token steps; the host top-k
+     sampler timed alone; the fp32 streams against --no-kernel; again
+     with --dtype int8 --activation-dtype bfloat16;
+ 10. modes: --mode none, dense and paged at --batch 1, fp32, greedy, 32
+     new tokens: the three streams are identical.
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
 
@@ -44,10 +57,13 @@ that holds the package.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -60,7 +76,9 @@ KERNEL_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention.cu"
 TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:248"
 MQ_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention_mq.cu"
 MQ_TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:481"
-KERNELS = ("paged_attention", "paged_attention_mq")
+GRID_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention_grid.cu"
+GRID_TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:750"
+KERNELS = ("paged_attention", "paged_attention_mq", "paged_attention_grid")
 
 
 def log(msg: str) -> None:
@@ -79,9 +97,12 @@ def check(cond: bool, msg: str) -> None:
 # ---- phase 3 helpers ---------------------------------------------------------
 
 def make_case(torch, *, B, NH, HS, ps, pps, P, kv, qd, lengths, starts,
-              seed, device, repeat_pages=False, KQ=None):
+              seed, device, repeat_pages=False, KQ=None, distinct=None):
     """Random q (dtype ``qd``) and pool for one kernel case (seeded, made
-    on the card); q is (B, KQ, NH, HS) for the multi-query kernel."""
+    on the card); q is (B, KQ, NH, HS) for the multi-query kernel. With
+    ``distinct``, table entries are random but the first ``distinct``
+    columns (the live pages) name distinct pages, as an allocator's
+    would."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     q = torch.randn(*((B, NH, HS) if KQ is None else (B, KQ, NH, HS)),
@@ -100,9 +121,13 @@ def make_case(torch, *, B, NH, HS, ps, pps, P, kv, qd, lengths, starts,
         dt = {"f32": torch.float32, "bf16": torch.bfloat16}[kv]
         pool = (torch.randn(shape, generator=g, device=device).to(dt),
                 torch.randn(shape, generator=g, device=device).to(dt))
-    if repeat_pages:
+    if repeat_pages or distinct:
         tables = torch.randint(0, P, (B, pps), generator=g, device=device,
                                dtype=torch.int32)
+        if distinct:
+            perm = torch.randperm(P, generator=g, device=device)
+            tables[:, :distinct] = perm[: B * distinct].reshape(
+                B, distinct).to(torch.int32)
     else:
         perm = torch.randperm(P, generator=g, device=device)[: B * pps]
         tables = perm.reshape(B, pps).to(torch.int32)
@@ -111,14 +136,34 @@ def make_case(torch, *, B, NH, HS, ps, pps, P, kv, qd, lengths, starts,
     return q, pool, tables, lengths, starts
 
 
-def wrapper_name(q, pool):
-    return ("paged_decode_attention" + ("_quant" if len(pool) == 4 else "")
-            + "_parts" + ("_mq" if q.dim() == 4 else ""))
+def wrapper_name(q, pool, grid=False):
+    quant = "_quant" if len(pool) == 4 else ""
+    if grid:
+        return f"paged_decode_attention{quant}_grid"
+    return (f"paged_decode_attention{quant}_parts"
+            + ("_mq" if q.dim() == 4 else ""))
 
 
-def run_parts(pa, q, pool, tables, lengths, starts, plain=False):
-    fn = getattr(pa, wrapper_name(q, pool) + ("_ref" if plain else ""))
+def run_parts(pa, q, pool, tables, lengths, starts, plain=False,
+              grid=False):
+    fn = getattr(pa, wrapper_name(q, pool, grid) + ("_ref" if plain else ""))
     return fn(q, *pool, tables, lengths, starts)
+
+
+def grid_err(torch, got, ref):
+    """max |Δ| of a normalized output and whether every element is within
+    its tolerance: 1e-5 + 1e-5·|ref| for an f32 output (f32 sums in
+    another order); for a bf16 output one bf16 ulp of |ref| (both compute
+    in f32 and round once) plus 1e-6 (the f32 sums differ by ~1e-7 of
+    the values they sum, more than a bf16 ulp of an output near 0)."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    if got.dtype == torch.bfloat16:
+        tol = 1e-6 + torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(
+            2.0 ** -126))) - 7)
+    else:
+        tol = 1e-5 + 1e-5 * r.abs()
+    return float(err.max()), bool((err <= tol).all())
 
 
 def max_err(torch, got, ref):
@@ -159,14 +204,15 @@ def sector_bytes(mask, itemsize):
     return 32 * sum(any(mask[i:i + per]) for i in range(0, len(mask), per))
 
 
-def parts_cost(q, pool, tables, lengths, starts):
+def parts_cost(q, pool, tables, lengths, starts, grid=False):
     """(bytes, f32 ops) the call must move and do for THESE inputs: K/V
     (and int8 scales) only for the valid tokens [start, len) of each row,
     counted in the 32-byte sectors of the (P, NH, HS, ps) layout that hold
     them (a page's tokens are contiguous in each (head, dim) row; a page
     named by several rows is read once); q at its dtype, the tables,
-    lengths and starts read once, acc/m/l written once; every query
-    scores and sums every valid token."""
+    lengths and starts read once, acc/m/l written once (with ``grid``,
+    the normalized output at q's dtype); every query scores and sums
+    every valid token."""
     B, NH, HS = q.shape[0], q.shape[-2], q.shape[-1]
     KQ = q.shape[1] if q.dim() == 4 else 1
     ps = pool[0].shape[3]
@@ -186,19 +232,22 @@ def parts_cost(q, pool, tables, lengths, starts):
                    for m in live.values()) * 2 * NH * HS
     if len(pool) == 4:
         kv_bytes += sum(sector_bytes(m, 4) for m in live.values()) * 2 * NH
-    nbytes = (kv_bytes + q.numel() * q.element_size()
-              + B * KQ * NH * (HS + 2) * 4 + B * 4 * 2 + tables.numel() * 4)
+    out_bytes = (q.numel() * q.element_size() if grid
+                 else B * KQ * NH * (HS + 2) * 4)
+    nbytes = (kv_bytes + q.numel() * q.element_size() + out_bytes
+              + B * 4 * 2 + tables.numel() * 4)
     ops = KQ * live_tokens * NH * 4 * HS     # q·k and p·v, 2 ops per MAC
     return nbytes, ops
 
 
-def time_case(torch, pa, q, pool, tables, lengths, starts):
+def time_case(torch, pa, q, pool, tables, lengths, starts, grid=False):
     """Kernel and plain device times (ms) and the bound of one case."""
     ms = device_ms(torch, lambda: run_parts(pa, q, pool, tables, lengths,
-                                            starts))
+                                            starts, grid=grid))
     plain = device_ms(torch, lambda: run_parts(
-        pa, q, pool, tables, lengths, starts, plain=True), iters=20)
-    nbytes, ops = parts_cost(q, pool, tables, lengths, starts)
+        pa, q, pool, tables, lengths, starts, plain=True, grid=grid),
+        iters=20)
+    nbytes, ops = parts_cost(q, pool, tables, lengths, starts, grid=grid)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_F32_OPS_S * 1e3
     return dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
@@ -239,6 +288,24 @@ MQ_CASES = [
                       lengths=[256, 0, 128, 384, 1, 129, 300, 512],
                       starts=[0, 0, 0, 100, 0, 0, 0, 0], KQ=96)),
     ("B*pps>4096", dict(SQ_CASES[4][1], KQ=4)),
+]
+GRID_CASES = [
+    # the normalized grid kernel: the CLI's decode shape (8 rows of a
+    # 64-token prompt and up to 64 new tokens at ps=32), then other page
+    # sizes with zero, start >= length (5/7, 17/17, 16/16) and windowed
+    # rows
+    ("cli", dict(B=8, ps=32, pps=32, P=128, distinct=4,
+                 lengths=[65, 74, 83, 92, 101, 110, 119, 128],
+                 starts=[0] * 8)),
+    ("ps8", dict(B=8, ps=8, pps=16, P=160,
+                 lengths=[128, 0, 5, 9, 64, 127, 1, 100],
+                 starts=[0, 0, 7, 0, 30, 100, 0, 90])),
+    ("ps16", dict(B=8, ps=16, pps=8, P=80,
+                  lengths=[128, 100, 17, 0, 33, 64, 16, 128],
+                  starts=[64, 20, 17, 0, 0, 63, 16, 0])),
+    ("ps96", dict(B=8, ps=96, pps=4, P=40,
+                  lengths=[384, 0, 96, 97, 200, 5, 383, 250],
+                  starts=[0, 0, 0, 96, 100, 7, 300, 0])),
 ]
 # (pool, q dtype) pairs: q as the main path sends it (f32 over the fp32
 # engine's pool, bf16 over the headline int8 pool and over bf16 pools),
@@ -290,6 +357,39 @@ def phase_kernels(torch, pa, device):
                     f"{t['plain_ms'] * 1e3:.2f} us, bound "
                     f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
                     f"({t['bytes']} B, {t['ops']} f32 ops)")
+            del q, pool, got, ref
+    # the grid kernel: every case timed; the JSON line takes the CLI
+    # shape at the main path's q dtype (f32 over the fp32 CLI run's pool,
+    # bf16 over the int8 run's)
+    for kv, qd in POOLS:
+        for ci, (name, kw) in enumerate(GRID_CASES):
+            q, pool, tables, lengths, starts = make_case(
+                torch, NH=NH, HS=HS, kv=kv, qd=qd, seed=200 + ci,
+                device=device, **kw)
+            wrapper = wrapper_name(q, pool, grid=True)
+            rec = records.setdefault(wrapper, {"max_abs_err": 0.0})
+            got = run_parts(pa, q, pool, tables, lengths, starts, grid=True)
+            ref = run_parts(pa, q, pool, tables, lengths, starts, plain=True,
+                            grid=True)
+            torch.cuda.synchronize()
+            err, ok = grid_err(torch, got, ref)
+            masked = [b for b, (ln, st) in enumerate(zip(kw["lengths"],
+                                                         kw["starts"]))
+                      if st >= ln]
+            zeros = all(bool((got[b] == 0).all()) for b in masked)
+            kvq = f"{kv}/q{qd}"
+            t = time_case(torch, pa, q, pool, tables, lengths, starts,
+                          grid=True)
+            log(f"  grid {kvq:10s} {name:6s} max|d| {err:.3e} "
+                f"{'ok' if ok and zeros else 'FAIL'}; kernel "
+                f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} "
+                f"us, bound {t['bound_ms'] * 1e3:.3f} us by "
+                f"{t['bound_by']} ({t['bytes']} B, {t['ops']} f32 ops)")
+            check(ok and zeros and bool(torch.isfinite(got).all()),
+                  f"grid kernel vs plain mismatch: {kvq} {name}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if name == "cli" and (kv, qd) in TIMED_POOLS:
+                rec.update(t, shape=name)
             del q, pool, got, ref
     return records
 
@@ -353,6 +453,119 @@ def count_syncs(torch, fn):
 def reset_counts(pa):
     for k in pa.LAUNCHES:
         pa.LAUNCHES[k] = 0
+
+
+def run_cli(cli, argv):
+    """The port's CLI in process; returns its --json payload."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--json"])
+    check(rc == 0, f"cli exited {rc}: {argv}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_cli(torch, pa, params32, cfg, device):
+    """Phases 9 and 10: the CLI at the reference defaults (sampled, fp32
+    and int8) and its three modes. Returns the grid launches of the two
+    sampled runs."""
+    from llmc_paged_tpu_torch import formats
+    from llmc_paged_tpu_torch.engine import cli
+    from llmc_paged_tpu_torch.tokenizer import byte_fallback_table
+    os.environ.pop("LLMC_PLATFORM", None)        # the CLI's card default
+    L = cfg.num_layers
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        t0 = time.monotonic()
+        ckpt, data, tokf = (os.path.join(d, n) for n in
+                            ("gpt2_124M.bin", "tokens.bin", "tok.bin"))
+        formats.write_checkpoint(ckpt, cfg, {k: v.cpu().numpy()
+                                             for k, v in params32.items()})
+        g = torch.Generator(device=device)
+        g.manual_seed(6)
+        formats.write_token_stream(data, torch.randint(
+            0, cfg.vocab_size, (8 * 64 + 64,), generator=g,
+            device=device).int().cpu().numpy())
+        formats.write_tokenizer_bin(tokf, byte_fallback_table(cfg.vocab_size))
+        log(f"  wrote checkpoint, token stream, tokenizer in "
+            f"{time.monotonic() - t0:.1f} s")
+        base = [f"--checkpoint={ckpt}", f"--data={data}",
+                f"--tokenizer={tokf}", "--mode=paged", "--page-size=32",
+                "--num-pages=128", "--pages-per-seq=32", "--seed=1337"]
+        sampled = base + ["--batch=8", "--prompt-size=64", "--max-new=64",
+                          "--top-k=40"]
+        launches, streams = {}, {}
+        for tag, extra, key in (
+                ("fp32", [], "paged_decode_attention_grid"),
+                ("int8", ["--dtype=int8", "--activation-dtype=bfloat16"],
+                 "paged_decode_attention_quant_grid")):
+            reset_counts(pa)
+            out = run_cli(cli, sampled + extra)
+            la = dict(pa.LAUNCHES)
+            st = out["stats"]
+            toks = [out["tokens"][str(b)] for b in range(8)]
+            check(len(toks) == 8 and all(len(t) == 128 for t in toks)
+                  and all(0 <= x < cfg.vocab_size for t in toks for x in t),
+                  f"cli {tag}: not 8 rows of 64 + 64 in-range tokens")
+            steps = st["single_steps"]
+            check(steps == st["decode_steps"] > 0 and la[key] == L * steps
+                  and sum(la.values()) == la[key],
+                  f"cli {tag}: {la} launches, want {key} = L x {steps} "
+                  "single-token steps and nothing else")
+            host_ms = 1e3 * (st["t_step_dispatch_s"]
+                             + st["t_materialize_s"]) / steps
+            log(f"  cli {tag}: decode_tok_per_s {st['decode_tok_per_s']:.1f}"
+                f", p50_ttft_s {st['p50_ttft_s']:.4f}, single-token steps "
+                f"{steps}, launches {key} {la[key]}, wall "
+                f"{st['wall_s']:.3f} s, host per step {host_ms:.2f} ms "
+                f"(dispatch {st['t_step_dispatch_s']} s, sample + fetch "
+                f"{st['t_materialize_s']} s, prefill dispatch "
+                f"{st['t_prefill_dispatch_s']} s)")
+            launches[key], streams[tag] = la[key], toks
+        # the host half of "sample + fetch": the engine's top-k row
+        # sampler on 8 rows of card logits while the device is idle (the
+        # rest of the bucket is the wait for the step's device work)
+        from llmc_paged_tpu_torch.engine.engine import _sample_rows
+        from llmc_paged_tpu_torch.sampler import Sampler
+        g.manual_seed(7)
+        logits = torch.randn(8, cfg.vocab_size, generator=g, device=device)
+        sampler = Sampler(1337, top_k=40)
+        _sample_rows(sampler, logits, 8)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(20):
+            _sample_rows(sampler, logits, 8)
+        log(f"  host sampling alone (8 rows, top-k 40, device idle): "
+            f"{(time.monotonic() - t0) / 20 * 1e3:.2f} ms a step")
+        plain = run_cli(cli, sampled + ["--no-kernel"])
+        agree = 0
+        for b in range(8):
+            a, p = streams["fp32"][b], plain["tokens"][str(b)]
+            check(a[64:80] == p[64:80],
+                  f"cli fp32 row {b}: kernel and --no-kernel streams "
+                  f"disagree in the first 16 tokens: {a[64:80]} vs "
+                  f"{p[64:80]}")
+            agree += a == p
+        log(f"  cli fp32 vs --no-kernel: {agree}/8 streams identical over "
+            "64 sampled tokens, all agree on the first 16")
+
+        log("phase 10: --mode none, dense, paged at --batch 1, fp32, greedy,"
+            " 32 new tokens")
+        modes = {}
+        for mode in ("none", "dense", "paged"):
+            t0 = time.monotonic()
+            out = run_cli(cli, base + [f"--mode={mode}", "--batch=1",
+                                       "--prompt-size=64", "--max-new=32",
+                                       "--greedy"])
+            modes[mode] = out["tokens"]["0"]
+            log(f"  {mode}: {len(modes[mode])} tokens in "
+                f"{time.monotonic() - t0:.2f} s (CLI call, checkpoint read "
+                "included)")
+        check(len(modes["paged"]) == 96
+              and modes["none"] == modes["dense"] == modes["paged"],
+              f"modes: the streams differ: {modes}")
+        log("  none, dense and paged: identical 32-token streams")
+    return launches
 
 
 def main() -> int:
@@ -670,6 +883,11 @@ def main() -> int:
           "prefix: suffix prefill disagrees with the full prefill")
     del pool_b
 
+    # 9-10. the CLI and its modes
+    log("phase 9: the CLI at the reference defaults (ps 32, fp32, seed "
+        "1337), 8 rows x 64-token prompts, 64 new tokens, top-k 40")
+    launches_cli = phase_cli(torch, pa, params32, cfg, device)
+
     kernels = []
     for wrapper, launches, source, replaces in (
             ("paged_decode_attention_parts",
@@ -683,7 +901,13 @@ def main() -> int:
              MQ_TPU_KERNEL),
             ("paged_decode_attention_quant_parts_mq",
              launches_spec["paged_decode_attention_quant_parts_mq"],
-             MQ_SOURCE, MQ_TPU_KERNEL)):
+             MQ_SOURCE, MQ_TPU_KERNEL),
+            ("paged_decode_attention_grid",
+             launches_cli["paged_decode_attention_grid"], GRID_SOURCE,
+             GRID_TPU_KERNEL),
+            ("paged_decode_attention_quant_grid",
+             launches_cli["paged_decode_attention_quant_grid"], GRID_SOURCE,
+             GRID_TPU_KERNEL)):
         rec = records[wrapper]
         kernels.append({
             "name": wrapper, "route": "cuda", "source": source,

@@ -73,7 +73,7 @@ class PageConfig:
 class EngineConfig:
     """Top-level engine switches (field-for-field the JAX package's)."""
 
-    cache_mode: str = "paged"          # the port serves "paged" only
+    cache_mode: str = "paged"          # "none" | "dense" | "paged"
     page: PageConfig = dataclasses.field(default_factory=PageConfig)
     param_dtype: str = "float32"       # "float32" | "bfloat16" | "int8"
     # compute dtype of the non-quantized leaves for param_dtype="int8"

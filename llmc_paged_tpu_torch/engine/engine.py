@@ -1,17 +1,31 @@
-"""L4: the paged serving engine (port of the paged ``run()`` path of
-llmc_paged_tpu/engine/engine.py).
+"""L4: the inference engine (port of llmc_paged_tpu/engine/engine.py): the
+reference's three decode paths as one engine (infer.c / cached_infer.c /
+paged_infer.c mains), plus continuous batching on the paged path.
 
-Continuous batching over the paged pool, greedy:
+``generate`` dispatches on EngineConfig.cache_mode: "none" recomputes the
+full forward over the trailing window each step, "dense" decodes over a
+contiguous KV cache, "paged" runs one request through ``run``.
+
+Sampling is on the host, as in the reference (train_gpt2.cu:1238-1239):
+the xorshift parity ``Sampler`` (greedy, top-k, temperature, and
+per-request overrides), one RNG stream consumed per stochastic row in row
+order. Greedy rows pick on the device and ship 4 bytes; top-k ships a
+(N, k') prefix of each row; the plain parity sampler ships the softmax.
+
+Continuous batching over the paged pool:
   * admission waves, each with ONE padded prefill (rows padded to the
     wave's longest 16-token bucket, a power-of-two batch, logits only at
-    each row's last prompt position); the first tokens are picked on the
-    device and fetched after the first decode link is queued;
+    each row's last prompt position); greedy first tokens are picked on
+    the device and fetched after the first decode link is queued,
+    sampled ones are drawn at admission;
   * sliding-window page reclamation;
-  * chains of K-step decode chunks: pages reserved K tokens ahead, a
-    free-page guard so no eviction happens mid-chain, tokens fed back on
-    the device between links, and ONE device→host copy per chain;
-  * a single-token step when no chain can run, with LRU preemption and
-    requeue of the victims;
+  * chains of K-step greedy decode chunks (a batch whose rows are all
+    effectively greedy): pages reserved K tokens ahead, a free-page guard
+    so no eviction happens mid-chain, tokens fed back on the device
+    between links, and ONE device→host copy per chain;
+  * a single-token step when no chain can run (every step of a batch
+    with a sampled row: the host stream cannot feed back on the device),
+    with LRU preemption and requeue of the victims;
   * stop tokens;
   * speculative decode (EngineConfig.spec_k >= 2): chains of verify
     chunks, each step scoring the carried token plus n-gram drafts; the
@@ -33,7 +47,7 @@ from __future__ import annotations
 
 import collections
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +62,12 @@ from llmc_paged_tpu_torch.kv.manager import (
 )
 from llmc_paged_tpu_torch.models import gpt2, gpt2_paged
 from llmc_paged_tpu_torch.ops.int8 import quantize_params
+from llmc_paged_tpu_torch.sampler import (
+    Sampler,
+    reconstruct_topk_row,
+    sample_mult,
+    topk_probs,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -61,6 +81,109 @@ def _later(what: str, item: str) -> NotImplementedError:
 def _bucket(n: int, step: int = 16) -> int:
     """Pad prefill lengths to buckets (bounded shape variety)."""
     return max(step, ((n + step - 1) // step) * step)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """Device logits or probabilities → f32 numpy on the host."""
+    return t.float().cpu().numpy()
+
+
+def _sample_rows(sampler: Sampler, logits, n: int) -> List[int]:
+    """Sample the first n rows of (N, V) device logits with one batched
+    device reduction and transfer; the greedy/top-k/parity dispatch lives
+    here (and in _pick_token for single rows) only."""
+    if sampler.greedy:
+        picks = torch.argmax(logits, dim=-1).cpu().numpy()
+        return [int(picks[i]) for i in range(n)]
+    if sampler.transforms_logits and sampler.top_k:
+        return _sample_rows_topk(sampler, logits, n)
+    if sampler.transforms_logits:
+        rows = _host(logits)
+        return [sampler.sample_logits(rows[i]) for i in range(n)]
+    probs = _host(torch.softmax(logits, dim=-1))
+    return [sampler.sample(probs[i]) for i in range(n)]
+
+
+def _sample_rows_topk(sampler: Sampler, logits, n: int) -> List[int]:
+    """Top-k host sampling from a device-computed top-k prefix: ships
+    2·(N, k') instead of (N, V) values while the sampled tokens stay
+    BIT-EXACT against the full-row path (reconstruct_topk_row feeds the
+    identical fp32 transform). A row whose shipped boundary ties the k-th
+    value (an unshipped entry could equal it, and the transform keeps
+    ties) downloads its full row instead."""
+    V = logits.shape[-1]
+    kship = min(max(2 * sampler.top_k, sampler.top_k + 16), V)
+    if kship >= V:
+        rows = _host(logits)
+        return [sampler.sample_logits(rows[i]) for i in range(n)]
+    vals_d, idx_d = torch.topk(logits, kship, dim=-1)
+    vals, idx = _host(vals_d), idx_d.cpu().numpy()
+    out = []
+    for i in range(n):
+        kth = vals[i, sampler.top_k - 1]
+        if vals[i, -1] >= kth:      # boundary tie may extend past the ship
+            row = _host(logits[i])
+        else:
+            row = reconstruct_topk_row(vals[i], idx[i], V)
+        out.append(sampler.sample_logits(row))
+    return out
+
+
+def _effective(sampler: Sampler, req: Request) -> Tuple[bool,
+                                                        Optional[int],
+                                                        float]:
+    """A request's sampling overrides resolved against the engine sampler:
+    (greedy, top_k, temperature). temperature 0 means greedy (the Sampler
+    idiom); invalid values were rejected by validate_request."""
+    g = sampler.greedy if req.greedy is None else req.greedy
+    tk = sampler.top_k if req.top_k is None else req.top_k
+    tmp = sampler.temperature if req.temperature is None else req.temperature
+    if tmp == 0:
+        g, tmp = True, 1.0
+    return g, tk, tmp
+
+
+def _has_overrides(req: Request) -> bool:
+    return (req.greedy is not None or req.top_k is not None
+            or req.temperature is not None)
+
+
+def _sample_rows_per_request(sampler: Sampler, logits,
+                             reqs: List[Request]) -> List[int]:
+    """Per-row transforms for mixed batches (some request overrides
+    greedy/top_k/temperature): each stochastic row draws from the SHARED
+    engine RNG stream in row order; greedy rows consume nothing. Ships
+    full rows. Draws bypass Sampler.sample (its greedy flag would turn an
+    explicit non-greedy override into argmax), and transform-free rows use
+    the same device softmax as _sample_rows, so a row WITHOUT overrides
+    samples bit-identically to a uniform batch."""
+    eff = [_effective(sampler, r) for r in reqs]
+    rows = _host(logits)
+    plain = any(not g and tk is None and tmp == 1.0 for g, tk, tmp in eff)
+    probs = _host(torch.softmax(logits, dim=-1)) if plain else None
+    out = []
+    for i, (g, tk, tmp) in enumerate(eff):
+        if g:
+            out.append(int(np.argmax(rows[i])))
+        elif tk is None and tmp == 1.0:
+            out.append(sample_mult(probs[i], sampler.rng.random_f32()))
+        else:
+            out.append(sample_mult(topk_probs(rows[i], tk, tmp),
+                                   sampler.rng.random_f32()))
+    return out
+
+
+def _pick_token(sampler: Sampler, logits_row) -> int:
+    """One token from a (V,) device logits row: greedy takes the argmax on
+    the device and ships 4 bytes; top-k ships its prefix; a temperature
+    alone ships the row; the parity sampler ships the softmax."""
+    if sampler.greedy:
+        return int(torch.argmax(logits_row))
+    if sampler.transforms_logits and sampler.top_k:
+        return _sample_rows_topk(sampler, logits_row[None], 1)[0]
+    if sampler.transforms_logits:
+        return sampler.sample_logits(_host(logits_row))
+    return sampler.sample(_host(torch.softmax(logits_row, dim=-1)))
 
 
 def _validate_indices(page_cfg: PageConfig, tables: np.ndarray,
@@ -94,10 +217,10 @@ def _check_window(window: Optional[int], cfg: GPT2Config) -> int:
 
 
 class InferenceEngine:
-    """Paged GPT-2 serving on one device: the card unless ``device`` says
+    """GPT-2 serving on one device: the card unless ``device`` says
     otherwise (``device=None`` raises when no GPU is present).
     ``use_kernel=False`` selects the plain PyTorch attention instead of the
-    CUDA kernel (the yardstick route)."""
+    CUDA kernels (the yardstick route)."""
 
     def __init__(self, params, cfg: GPT2Config,
                  econf: Optional[EngineConfig] = None, device=None,
@@ -145,9 +268,8 @@ class InferenceEngine:
 
     def _check_config(self) -> None:
         econf, page = self.econf, self.econf.page
-        if econf.cache_mode != "paged":
-            raise _later(f"cache_mode={econf.cache_mode!r}",
-                         "the dense and no-cache modes")
+        if econf.cache_mode not in ("none", "dense", "paged"):
+            raise ValueError(f"cache_mode {econf.cache_mode!r}")
         if econf.spec_k >= 2 and not econf.greedy:
             raise ValueError(
                 "spec_k requires greedy serving: speculative verification "
@@ -156,11 +278,7 @@ class InferenceEngine:
         if econf.mesh_shape:
             raise _later("mesh_shape", "training and tensor parallelism")
         if econf.device_sampling:
-            raise _later("device_sampling", "host sampling and device "
-                         "sampling")
-        if not econf.greedy:
-            raise _later("non-greedy sampling", "host sampling and device "
-                         "sampling")
+            raise _later("device_sampling", "device sampling")
         if econf.param_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"param_dtype {econf.param_dtype!r}")
         if econf.activation_dtype not in _DTYPES:
@@ -168,23 +286,123 @@ class InferenceEngine:
         if page.kv_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"kv_dtype {page.kv_dtype!r}")
 
+    def _default_sampler(self) -> Sampler:
+        """The EngineConfig-derived sampler (one construction point)."""
+        return Sampler(self.econf.seed, self.econf.greedy,
+                       top_k=self.econf.top_k,
+                       temperature=self.econf.temperature)
+
+    # -- mode "none": full recompute with sliding window (infer.c) ----------
+
+    def generate_nocache(self, prompt: Sequence[int], max_new_tokens: int,
+                         window: Optional[int] = None,
+                         sampler: Optional[Sampler] = None) -> List[int]:
+        """infer.c semantics: re-run the full forward over the last
+        ``window`` tokens each step (phase-2 slide, infer.c:104-127). The
+        JAX package pads the context to a 16-token bucket against
+        recompiles; eager PyTorch has none, so the context is not padded
+        (causal attention makes the last position's logits the same)."""
+        window = _check_window(window, self.cfg)
+        sampler = sampler or self._default_sampler()
+        stops = self.econf.stop_tokens
+        toks = list(prompt)
+        for _ in range(max_new_tokens):
+            ctx = torch.tensor([toks[-window:]], dtype=torch.int32)
+            logits = gpt2.forward(self.params, ctx, self.cfg)
+            toks.append(_pick_token(sampler, logits[0, -1]))
+            if stops and toks[-1] in stops:
+                break
+        return toks
+
+    # -- mode "dense": contiguous KV cache (cached_infer.c) -----------------
+
+    def generate_dense(self, prompt: Sequence[int], max_new_tokens: int,
+                       window: Optional[int] = None,
+                       sampler: Optional[Sampler] = None) -> List[int]:
+        """cached_infer.c semantics: prefill once, then one-token steps.
+        When ``window`` is set and the sequence outgrows it, attention is
+        masked to the trailing window and the position embedding clamps to
+        window-1 (the cache-pointer bump of cached_infer.c:606: every
+        post-window token is computed as the last position of its
+        window). The cache holds the serving compute dtype."""
+        cfg = self.cfg
+        window = _check_window(window, cfg)
+        if max_new_tokens <= 0:
+            return list(prompt)
+        # a prompt longer than the window attends only to its trailing
+        # `window` tokens (mode-"none" parity); cache positions are
+        # relative to the dropped base
+        base = max(0, len(prompt) - window)
+        total = len(prompt) - base + max_new_tokens
+        sampler = sampler or self._default_sampler()
+        stops = self.econf.stop_tokens
+        cache = gpt2.init_cache(cfg, 1, total, dtype=self.params["wpe"].dtype,
+                                device=self.device)
+        toks = list(prompt)
+        logits, cache = gpt2.prefill(
+            self.params, torch.tensor([toks[base:]], dtype=torch.int32),
+            cache, cfg)
+        toks.append(_pick_token(sampler, logits[0, -1]))
+        for _ in range(max_new_tokens - 1):
+            if stops and toks[-1] in stops:
+                break
+            pos = len(toks) - 1 - base
+            logits, cache = gpt2.decode_step(
+                self.params, torch.tensor([toks[-1]], dtype=torch.int32),
+                torch.tensor([pos]), cache, cfg,
+                wpe_pos=torch.tensor([min(pos, window - 1)]),
+                starts=torch.tensor([max(0, pos + 1 - window)]))
+            toks.append(_pick_token(sampler, logits[0]))
+        return toks
+
+    # -- mode "paged": block-table KV + continuous batching ------------------
+
+    def generate_paged(self, prompt: Sequence[int], max_new_tokens: int,
+                       window: Optional[int] = None,
+                       sampler: Optional[Sampler] = None) -> List[int]:
+        """Single-sequence paged decode (paged_infer.c main semantics,
+        including its sliding-window `offset` when ``window`` is set)."""
+        reqs = [Request(rid=0, prompt=list(prompt),
+                        max_new_tokens=max_new_tokens)]
+        out = self.run(reqs, window=window, sampler=sampler)
+        return out[0].tokens
+
+    def generate(self, prompt: Sequence[int], max_new_tokens: int,
+                 window: Optional[int] = None,
+                 sampler: Optional[Sampler] = None) -> List[int]:
+        """prompt + generated tokens through EngineConfig.cache_mode."""
+        fn = {"none": self.generate_nocache,
+              "dense": self.generate_dense,
+              "paged": self.generate_paged}[self.econf.cache_mode]
+        return fn(prompt, max_new_tokens, window=window, sampler=sampler)
+
     def validate_request(self, req: Request,
                          window: Optional[int] = None) -> None:
-        """Raise if ``req`` could never be scheduled (ValueError) or asks
-        for an option outside this slice of the port
-        (NotImplementedError)."""
+        """Raise if ``req`` could never be scheduled or asks for invalid
+        sampling values (ValueError), or asks for an option outside this
+        slice of the port (NotImplementedError)."""
         page = self.econf.page
         window = _check_window(window, self.cfg)
         if not req.prompt:
             raise ValueError(f"request {req.rid} has an empty prompt")
+        if req.temperature is not None and not (
+                0 <= req.temperature < float("inf")):
+            # the `not (x >= 0)` form also rejects NaN
+            raise ValueError(f"request {req.rid}: temperature must be "
+                             f"finite and >= 0, got {req.temperature}")
+        if req.top_k is not None and req.top_k < 1:
+            raise ValueError(f"request {req.rid}: top_k must be >= 1, "
+                             f"got {req.top_k}")
         if req.logprobs or req.prompt_logprobs:
             raise _later("logprobs", "logprobs and penalties")
         if req.frequency_penalty or req.presence_penalty:
             raise _later("penalties", "logprobs and penalties")
-        if req.greedy is not None or req.top_k is not None \
-                or req.temperature is not None:
-            raise _later("per-request sampling overrides",
-                         "host sampling and device sampling")
+        if (_has_overrides(req) and self.econf.spec_k >= 2
+                and not _effective(self._default_sampler(), req)[0]):
+            raise ValueError(
+                f"request {req.rid}: spec_k requires greedy decoding; a "
+                "non-greedy per-request override cannot be speculatively "
+                "verified")
         if req.max_new_tokens <= 0:
             return
         # prompts longer than the window keep their trailing `window`
@@ -241,17 +459,20 @@ class InferenceEngine:
             on_tokens=None) -> List[Request]:
         """Continuous batching over the paged pool. Returns the finished
         requests (the same objects, with .generated/.ttft/.preemptions
-        filled). ``on_finish(req)`` is called as each request finishes.
-        ``sampler``, ``feed`` and ``on_tokens`` belong to later slices."""
-        if sampler is not None:
-            raise _later("a host sampler", "host sampling and device "
-                         "sampling")
+        filled). ``sampler`` is the host sampler (default: the
+        EngineConfig's); ``on_finish(req)`` is called as each request
+        finishes. ``feed`` and ``on_tokens`` belong to a later slice."""
         if feed is not None or on_tokens is not None:
-            raise _later("feed/on_tokens", "formats/tokenizer/CLI/server/"
-                         "HTTP")
+            raise _later("feed/on_tokens", "the serving front and HTTP")
         cfg, econf = self.cfg, self.econf
         page = econf.page
         window = _check_window(window, cfg)
+        sampler = sampler or self._default_sampler()
+        if econf.spec_k >= 2 and not sampler.greedy:
+            raise ValueError(
+                "spec_k requires greedy serving: speculative verification "
+                "accepts argmax matches; rejection sampling for the "
+                "stochastic samplers is not implemented")
         sched = Scheduler(econf.max_batch)
         ttfts: "collections.deque" = collections.deque(maxlen=1024)
         dev = self.device
@@ -281,6 +502,7 @@ class InferenceEngine:
         decode_tokens = 0
         decode_steps = 0        # device decode steps (each = L kernel calls)
         verify_steps = 0        # of which speculative verify steps
+        single_steps = 0        # of which single-token steps
         suffix_prefills = 0     # prefix-cache suffix prefill calls
         peak_pages = 0
         iteration = 0
@@ -288,7 +510,7 @@ class InferenceEngine:
         # build and enqueue work (the device runs asynchronously);
         # materialize measures the blocking device→host fetches
         tacc = {"prefill_dispatch": 0.0, "chain_dispatch": 0.0,
-                "materialize": 0.0}
+                "step_dispatch": 0.0, "materialize": 0.0}
         # per-slot count of prompt tokens dropped at admission (prompt
         # longer than the window); cache positions are relative to it
         bases: Dict[int, int] = {}
@@ -427,10 +649,29 @@ class InferenceEngine:
                     for slot, req in group:
                         prefix_stats["registered"] += mgr.register_prompt(
                             slot, req.tokens)
-                # pick on the device and fetch after the first chain link
-                # is queued, so the download overlaps decode
-                picks_d = torch.argmax(logits[: len(group)], dim=-1).int()
-                deferred = (picks_d, list(group))
+                group_reqs = [r for _, r in group]
+                if all(_effective(sampler, r)[0] for r in group_reqs):
+                    # greedy: pick on the device and fetch after the first
+                    # chain link is queued, so the download overlaps decode
+                    picks_d = torch.argmax(logits[: len(group)],
+                                           dim=-1).int()
+                    deferred = (picks_d, list(group))
+                else:
+                    # a sampled row draws its first token now, from the
+                    # host stream in row order
+                    lg = logits[: len(group)]
+                    if any(_has_overrides(r) for r in group_reqs):
+                        first_toks = _sample_rows_per_request(
+                            sampler, lg, group_reqs)
+                    else:
+                        first_toks = _sample_rows(sampler, lg, len(group))
+                    for i, (slot, req) in enumerate(group):
+                        req.generated.append(first_toks[i])
+                        req.mark_first_token()
+                        apply_stop(req)
+                        if req.done:
+                            mgr.free_prompt(slot)
+                            finish_slot(slot)
                 tacc["prefill_dispatch"] += time.monotonic() - t_pf0
 
             def flush_deferred():
@@ -462,6 +703,10 @@ class InferenceEngine:
 
             # ---- chunked greedy decode -----------------------------------
             chunk = 1
+            # a batch whose every row is effectively greedy chains; a
+            # sampled row needs the host stream, so such a batch steps
+            all_greedy = all(_effective(sampler, r)[0]
+                             for r in sched.running.values())
             # once admission has run, anything still waiting is blocked on
             # slots or pages: chains run anyway but stay short
             queue_blocked = bool(sched.waiting)
@@ -620,7 +865,7 @@ class InferenceEngine:
                 # a link, and the single-token step below it
 
             dct = defer_counts()
-            if sched.running:
+            if all_greedy and sched.running:
                 # capacity-bound only: rows that reach max_new mid-chunk are
                 # truncated on the host
                 cap = min(page.max_context
@@ -803,6 +1048,7 @@ class InferenceEngine:
                     if econf.debug_checks:
                         _validate_indices(page, tables, pg[None], sl[None],
                                           lengths)
+                    t_sd0 = time.monotonic()
                     logits, pool = gpt2_paged.decode_step_paged(
                         self.params, torch.from_numpy(toks),
                         torch.from_numpy(wpe_pos), torch.from_numpy(pg),
@@ -810,13 +1056,23 @@ class InferenceEngine:
                         torch.from_numpy(lengths), pool, cfg,
                         use_kernel=self.use_kernel,
                         starts=torch.from_numpy(starts))
+                    tacc["step_dispatch"] += time.monotonic() - t_sd0
                     decode_steps += 1
+                    single_steps += 1
                     decode_tokens += len(stepped_s)
+                    # rows gathered in `stepped_s` order so the parity RNG
+                    # stream is consumed per stepped row, in order
+                    step_reqs = [sched.running[s] for s in stepped_s]
                     t_m0 = time.monotonic()
-                    rows = torch.tensor(stepped_s, device=dev)
-                    row_toks = torch.argmax(logits[rows], dim=-1).cpu()
+                    step_logits = logits[torch.tensor(stepped_s, device=dev)]
+                    if any(_has_overrides(r) for r in step_reqs):
+                        row_toks = _sample_rows_per_request(
+                            sampler, step_logits, step_reqs)
+                    else:
+                        row_toks = _sample_rows(sampler, step_logits,
+                                                len(stepped_s))
                     tacc["materialize"] += time.monotonic() - t_m0
-                    for slot, tok in zip(stepped_s, row_toks.tolist()):
+                    for slot, tok in zip(stepped_s, row_toks):
                         req = sched.running[slot]
                         req.generated.append(tok)
                         apply_stop(req)
@@ -841,8 +1097,10 @@ class InferenceEngine:
             "p50_ttft_s": float(np.median(ttfts)) if ttfts else 0.0,
             "t_prefill_dispatch_s": round(tacc["prefill_dispatch"], 4),
             "t_chain_dispatch_s": round(tacc["chain_dispatch"], 4),
+            "t_step_dispatch_s": round(tacc["step_dispatch"], 4),
             "t_materialize_s": round(tacc["materialize"], 4),
             "verify_steps": verify_steps,
+            "single_steps": single_steps,
             "suffix_prefills": suffix_prefills,
         }
         if use_spec:

@@ -9,8 +9,8 @@ llmc_paged_tpu/engine/scheduler.py.
     prompt + generated-so-far).
 
 Request fields for options outside this slice of the port (streaming,
-per-request sampling, logprobs, penalties) are kept so requests carry
-over; the port's engine rejects a request that sets one.
+logprobs, penalties) are kept so requests carry over; the port's engine
+rejects a request that sets one.
 """
 
 from __future__ import annotations
@@ -42,14 +42,16 @@ class Request:
     # excess at materialization.
     stop_tokens: Optional[List[int]] = None
     stopped: bool = False
-    # per-request sampling overrides, logprobs and penalties: later slices
-    # of the port (the engine raises NotImplementedError when one is set)
+    # per-request sampling overrides, resolved against the engine sampler
+    # (None: the sampler's own; temperature 0 means greedy)
     temperature: Optional[float] = None
     top_k: Optional[int] = None
     greedy: Optional[bool] = None
     # admission priority: higher admits sooner; FIFO within a class.
     # Preemption victims stay LRU (block manager policy).
     priority: int = 0
+    # logprobs and penalties: a later slice of the port (the engine
+    # raises NotImplementedError when one is set)
     logprobs: bool = False
     logprob_values: List[float] = dataclasses.field(default_factory=list)
     prompt_logprobs: bool = False

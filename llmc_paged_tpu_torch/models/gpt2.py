@@ -1,6 +1,12 @@
 """L2: GPT-2 as plain functions over a dict of tensors (port of
 llmc_paged_tpu/models/gpt2.py: init, device placement, the shared block
-skeleton, logits and the dense forward).
+skeleton, logits, and the reference's two cache-free and dense-cache
+modes):
+  * ``forward``     : full recompute, no cache   (infer.c path)
+  * ``prefill``     : forward that also fills a dense KV cache
+  * ``decode_step`` : one-token step over the dense cache
+    (cached_infer.c path, without its rebuild-qkv copy)
+The paged path lives in models/gpt2_paged.py.
 
 Parameters keep the JAX package's names and its stacked layout: each
 per-layer tensor has a leading L axis, weights are stored (OC, IC). The
@@ -9,13 +15,14 @@ vocab is not padded (wte is (V, C)); logits are V wide.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
 from llmc_paged_tpu_torch import resolve_device
 from llmc_paged_tpu_torch.config import GPT2Config
+from llmc_paged_tpu_torch.formats import param_shapes
 from llmc_paged_tpu_torch.ops import layers as L
 from llmc_paged_tpu_torch.ops.int8 import int8_linear
 
@@ -26,18 +33,24 @@ LAYER_KEYS = ("ln1w", "ln1b", "qkvw", "qkvb", "attprojw", "attprojb",
 LN_KEYS = ("ln1w", "ln1b", "ln2w", "ln2b", "lnfw", "lnfb")
 
 
-def param_shapes(cfg: GPT2Config) -> Dict[str, Tuple[int, ...]]:
-    """Parameter shapes in checkpoint order."""
-    V, C, Lr, T = (cfg.vocab_size, cfg.channels, cfg.num_layers,
-                   cfg.max_seq_len)
-    return {"wte": (V, C), "wpe": (T, C),
-            "ln1w": (Lr, C), "ln1b": (Lr, C),
-            "qkvw": (Lr, 3 * C, C), "qkvb": (Lr, 3 * C),
-            "attprojw": (Lr, C, C), "attprojb": (Lr, C),
-            "ln2w": (Lr, C), "ln2b": (Lr, C),
-            "fcw": (Lr, 4 * C, C), "fcb": (Lr, 4 * C),
-            "fcprojw": (Lr, C, 4 * C), "fcprojb": (Lr, C),
-            "lnfw": (C,), "lnfb": (C,)}
+class DenseKVCache(NamedTuple):
+    """Contiguous per-layer KV cache (cached_infer.c:453-454,554 redesigned
+    as tensors): k and v are (L, B, NH, S, HS), updated in place."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+
+def init_cache(cfg: GPT2Config, batch: int, max_len: int,
+               dtype=torch.float32, device=None) -> DenseKVCache:
+    """Zeroed dense cache on ``device`` (the card by default)."""
+    device = resolve_device(device)
+    shape = (cfg.num_layers, batch, cfg.num_heads, max_len, cfg.head_dim)
+    return DenseKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_params(cfg: GPT2Config, generator: torch.Generator,
@@ -160,3 +173,60 @@ def forward(params: Params, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         x = _block(x, _layer(stack, i), cfg, attend)
     return _logits(x, params, cfg)
+
+
+@torch.no_grad()
+def prefill(params: Params, tokens: torch.Tensor, cache: DenseKVCache,
+            cfg: GPT2Config):
+    """Forward over the prompt that also fills the dense KV cache at
+    positions [0, T). Returns (logits (B, T, V), cache). Rows shorter than
+    T are right-padded; their K/V past the true length is masked by the
+    decode step's length."""
+    dev = params["wpe"].device
+    tokens = tokens.to(dev)
+    B, T = tokens.shape
+    x = _embed(params, tokens, torch.arange(T, device=dev)[None])
+    stack = _layer_stack(params)
+
+    for i in range(cfg.num_layers):
+        def attend(q, k, v, i=i):
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B,NH,T,HS)
+            cache.k[i, :, :, :T] = k
+            cache.v[i, :, :, :T] = v
+            att = L.prefill_attention(q, k, v)
+            return att.transpose(1, 2).reshape(B, T, cfg.channels)
+
+        x = _block(x, _layer(stack, i), cfg, attend)
+    return _logits(x, params, cfg), cache
+
+
+@torch.no_grad()
+def decode_step(params: Params, tokens: torch.Tensor, pos: torch.Tensor,
+                cache: DenseKVCache, cfg: GPT2Config, wpe_pos=None,
+                starts=None):
+    """One decode step over the dense cache.
+
+    tokens (B,) new ids; pos (B,) their cache positions (== the row's
+    current length). Returns (logits (B, V), cache). Sliding-window parity
+    (cached_infer.c:606 pointer bump): ``starts`` are per-row window lower
+    bounds and ``wpe_pos`` the clamped position-embedding indices (a
+    post-window token sits at window position W-1)."""
+    dev = params["wpe"].device
+    tokens, pos = tokens.to(dev), pos.to(dev).long()
+    wpe_pos = pos if wpe_pos is None else wpe_pos.to(dev)
+    starts = None if starts is None else starts.to(dev)
+    B = tokens.shape[0]
+    rows = torch.arange(B, device=dev)
+    x = _embed(params, tokens, wpe_pos)
+    stack = _layer_stack(params)
+
+    for i in range(cfg.num_layers):
+        def attend(q, k, v, i=i):                       # (B, NH, HS)
+            cache.k[i, rows, :, pos] = k.to(cache.k.dtype)
+            cache.v[i, rows, :, pos] = v.to(cache.v.dtype)
+            att = L.decode_attention(q, cache.k[i], cache.v[i], pos + 1,
+                                     start=starts)
+            return att.reshape(B, cfg.channels)
+
+        x = _block(x, _layer(stack, i), cfg, attend)
+    return _logits(x, params, cfg), cache

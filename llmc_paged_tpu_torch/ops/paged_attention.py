@@ -1,17 +1,22 @@
 """Paged flash-decode attention: the hand-written CUDA kernels and their
-plain PyTorch versions (port of llmc_paged_tpu/ops/paged_attention.py,
-the single-query and multi-query parts paths).
+plain PyTorch versions (port of llmc_paged_tpu/ops/paged_attention.py:
+the single-query and multi-query parts paths and the normalized grid
+path).
 
-The kernels compute the JAX package's PARTS contract: for each row,
+Two kernels compute the JAX package's PARTS contract: for each row,
 attention over the row's live pages [start//ps, (len-1)//ps] read
 through the block table, positions outside [start, len) masked,
 returning UNNORMALIZED online-softmax parts. ``csrc/paged_attention.cu``
 takes one query per row (acc (B,NH,HS) f32, m/l (B,NH) f32); the decode
-chunk merges its parts with the in-flight tail and the normalized
-wrappers divide by l. ``csrc/paged_attention_mq.cu`` takes KQ queries per
-row that all attend the same committed range, with no causal mask inside
-the pool (acc (B,KQ,NH,HS) f32, m/l (B,KQ,NH) f32): speculative verify
-and suffix prefill merge them with their causal in-flight block.
+chunk merges its parts with the in-flight tail. ``csrc/paged_attention_mq.cu``
+takes KQ queries per row that all attend the same committed range, with
+no causal mask inside the pool (acc (B,KQ,NH,HS) f32, m/l (B,KQ,NH)
+f32): speculative verify and suffix prefill merge them with their causal
+in-flight block. ``csrc/paged_attention_grid.cu`` computes NORMALIZED
+single-query attention (B,NH,HS) in q's dtype, int8 scales applied
+before the dots: the normalized wrappers route to it when the page size
+is not a multiple of 128, as the JAX package routes to its grid kernel,
+and divide the single-query parts otherwise.
 
 Dispatch: a tensor on the CPU goes to the plain version; a tensor on the
 card launches the kernel or raises — there is no fallback. Each launch
@@ -36,7 +41,9 @@ NEG_INF = -1e30
 LAUNCHES = {"paged_decode_attention_parts": 0,
             "paged_decode_attention_quant_parts": 0,
             "paged_decode_attention_parts_mq": 0,
-            "paged_decode_attention_quant_parts_mq": 0}
+            "paged_decode_attention_quant_parts_mq": 0,
+            "paged_decode_attention_grid": 0,
+            "paged_decode_attention_quant_grid": 0}
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # the .cu enum
 _MAX_SMEM = 48 * 1024
@@ -46,6 +53,9 @@ _MAX_SMEM_MQ = 232448
 # queries a multi-query block scores against one staged page (the .cu's
 # QT): one tile covers any spec_k up to 16
 MQ_TILE = 16
+# head sizes the grid kernel is instantiated for (its register tile):
+# every GPT-2 size has head_dim 64
+GRID_HEAD_DIMS = (64,)
 
 
 # ---- plain PyTorch versions -------------------------------------------------
@@ -139,20 +149,45 @@ def paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
         block_tables, lengths, starts)
 
 
-# ---- the CUDA kernel --------------------------------------------------------
+def paged_decode_attention_grid_ref(q, k_pages, v_pages, block_tables,
+                                    lengths, starts=None):
+    """Plain version of paged_decode_attention_grid: the plain normalized
+    attention computed in f32 (an f32 q promotes the gathered pool) and
+    rounded to q.dtype once, as the grid kernel does."""
+    return paged_decode_attention_ref(q.float(), k_pages, v_pages,
+                                      block_tables, lengths,
+                                      starts).to(q.dtype)
 
-def _kernel_fn(mq: bool):
+
+def paged_decode_attention_quant_grid_ref(q, k_pages, v_pages, k_scale,
+                                          v_scale, block_tables, lengths,
+                                          starts=None):
+    """Plain version of paged_decode_attention_quant_grid (the pool
+    dequantized to f32 first, so K and V are scaled before the dots)."""
+    return paged_decode_attention_quant_ref(
+        q.float(), k_pages, v_pages, k_scale, v_scale, block_tables,
+        lengths, starts).to(q.dtype)
+
+
+# ---- the CUDA kernels -------------------------------------------------------
+
+def _kernel_fn(kind: str):
+    """The C entry point of a kernel: "sq" (single-query parts), "mq"
+    (multi-query parts) or "grid" (normalized)."""
     from llmc_paged_tpu_torch.ops import _build
 
-    if mq:
+    if kind == "mq":
         fn = _build.load("paged_attention_mq").flash_decode_parts_mq
-        n_int = 7           # B, KQ, NH, HS, ps, pps, qtile
+        n_ptr, n_int = 11, 7    # B, KQ, NH, HS, ps, pps, qtile
+    elif kind == "grid":
+        fn = _build.load("paged_attention_grid").paged_decode_grid
+        n_ptr, n_int = 9, 5     # out only; B, NH, HS, ps, pps
     else:
         fn = _build.load("paged_attention").flash_decode_parts
-        n_int = 5           # B, NH, HS, ps, pps
+        n_ptr, n_int = 11, 5    # B, NH, HS, ps, pps
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i32, i32] + [ptr] * 11 + [i32] * n_int
+        fn.argtypes = ([i32, i32] + [ptr] * n_ptr + [i32] * n_int
                        + [ctypes.c_float, ptr])
         fn.restype = i32
     return fn
@@ -178,12 +213,10 @@ def _mq_smem_bytes(qtile: int, HS: int, ps: int) -> int:
                 + 2 * ps + 3 * qtile)
 
 
-def _launch(wrapper, mq, q, k_pages, v_pages, scales, block_tables,
-            lengths, starts):
-    """Validate, allocate the outputs and launch a kernel on the current
-    stream: the single-query kernel (q (B, NH, HS)) or, with ``mq``, the
-    multi-query kernel (q (B, KQ, NH, HS)). Raises on anything the kernel
-    does not take."""
+def _check_operands(q, k_pages, v_pages, scales, block_tables, lengths,
+                    starts, mq):
+    """Raise on anything the kernels do not take; returns (B, KQ, NH, HS,
+    ps, pps)."""
     dev = q.device
     if q.dim() != (4 if mq else 3) or k_pages.dim() != 4:
         raise ValueError(("q must be (B, KQ, NH, HS)" if mq else
@@ -195,17 +228,48 @@ def _launch(wrapper, mq, q, k_pages, v_pages, scales, block_tables,
         (B, NH, HS), KQ = q.shape, 1
     P, _, _, ps = k_pages.shape
     pps = block_tables.shape[-1]
-    quant = scales is not None
-    kv_dtypes = (torch.int8,) if quant else (torch.float32, torch.bfloat16)
+    kv_dtypes = ((torch.int8,) if scales is not None
+                 else (torch.float32, torch.bfloat16))
     _check("q", q, (torch.float32, torch.bfloat16), q.shape, dev)
     _check("k_pages", k_pages, kv_dtypes, (P, NH, HS, ps), dev)
     _check("v_pages", v_pages, (k_pages.dtype,), (P, NH, HS, ps), dev)
     _check("block_tables", block_tables, (torch.int32,), (B, pps), dev)
     _check("lengths", lengths, (torch.int32,), (B,), dev)
     _check("starts", starts, (torch.int32,), (B,), dev)
-    if quant:
+    if scales is not None:
         for nm, s in zip(("k_scale", "v_scale"), scales):
             _check(nm, s, (torch.float32,), (P, NH, ps), dev)
+    return B, KQ, NH, HS, ps, pps
+
+
+def _call(wrapper, kind, q, k_pages, v_pages, scales, block_tables,
+          lengths, starts, outs, dims):
+    """Launch kernel ``kind`` on the current stream and count it."""
+    dev = q.device
+    ks, vs = scales if scales is not None else (None, None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _kernel_fn(kind)(
+            _KIND[q.dtype], _KIND[k_pages.dtype], q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(),
+            ks.data_ptr() if ks is not None else None,
+            vs.data_ptr() if vs is not None else None,
+            block_tables.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
+            *(o.data_ptr() for o in outs), *dims,
+            1.0 / math.sqrt(q.shape[-1]), stream)
+    if rc != 0:
+        raise RuntimeError(f"{wrapper} launch failed: CUDA error {rc}")
+    LAUNCHES[wrapper] += 1
+
+
+def _launch(wrapper, mq, q, k_pages, v_pages, scales, block_tables,
+            lengths, starts):
+    """Validate, allocate the outputs and launch a parts kernel: the
+    single-query kernel (q (B, NH, HS)) or, with ``mq``, the multi-query
+    kernel (q (B, KQ, NH, HS)). Raises on anything the kernel does not
+    take."""
+    B, KQ, NH, HS, ps, pps = _check_operands(
+        q, k_pages, v_pages, scales, block_tables, lengths, starts, mq)
     qtile = max(1, min(KQ, MQ_TILE))
     if mq and _mq_smem_bytes(qtile, HS, ps) > _MAX_SMEM_MQ:
         raise ValueError(f"page_size {ps} / head_dim {HS} exceed the "
@@ -214,27 +278,33 @@ def _launch(wrapper, mq, q, k_pages, v_pages, scales, block_tables,
         raise ValueError(f"page_size {ps} / head_dim {HS} exceed the "
                          "kernel's shared memory")
     lead = (B, KQ) if mq else (B,)
+    dev = q.device
     acc = torch.empty((*lead, NH, HS), dtype=torch.float32, device=dev)
     m = torch.empty((*lead, NH), dtype=torch.float32, device=dev)
     l = torch.empty((*lead, NH), dtype=torch.float32, device=dev)
     if B == 0 or NH == 0 or KQ == 0:
         return acc, m, l
-    ks, vs = scales if quant else (None, None)
-    fn = _kernel_fn(mq)
     dims = (B, KQ, NH, HS, ps, pps, qtile) if mq else (B, NH, HS, ps, pps)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(_KIND[q.dtype], _KIND[k_pages.dtype], q.data_ptr(),
-                k_pages.data_ptr(), v_pages.data_ptr(),
-                ks.data_ptr() if quant else None,
-                vs.data_ptr() if quant else None,
-                block_tables.data_ptr(), lengths.data_ptr(),
-                starts.data_ptr(), acc.data_ptr(), m.data_ptr(),
-                l.data_ptr(), *dims, 1.0 / math.sqrt(HS), stream)
-    if rc != 0:
-        raise RuntimeError(f"{wrapper} launch failed: CUDA error {rc}")
-    LAUNCHES[wrapper] += 1
+    _call(wrapper, "mq" if mq else "sq", q, k_pages, v_pages, scales,
+          block_tables, lengths, starts, (acc, m, l), dims)
     return acc, m, l
+
+
+def _launch_grid(wrapper, q, k_pages, v_pages, scales, block_tables,
+                 lengths, starts):
+    """Validate, allocate the (B, NH, HS) output in q's dtype and launch
+    the normalized grid kernel. Raises on anything it does not take."""
+    B, _, NH, HS, ps, pps = _check_operands(
+        q, k_pages, v_pages, scales, block_tables, lengths, starts, False)
+    if HS not in GRID_HEAD_DIMS:
+        raise ValueError(f"head_dim {HS} is not one of the grid kernel's "
+                         f"{GRID_HEAD_DIMS}")
+    out = torch.empty((B, NH, HS), dtype=q.dtype, device=q.device)
+    if B == 0 or NH == 0:
+        return out
+    _call(wrapper, "grid", q, k_pages, v_pages, scales, block_tables,
+          lengths, starts, (out,), (B, NH, HS, ps, pps))
+    return out
 
 
 def _route(q):
@@ -311,6 +381,38 @@ def paged_decode_attention_quant_parts_mq(q, k_pages, v_pages, k_scale,
                    lengths, starts)
 
 
+def paged_decode_attention_grid(q, k_pages, v_pages, block_tables, lengths,
+                                starts=None):
+    """NORMALIZED single-query attention over a float/bf16 paged pool
+    (B, NH, HS) in q.dtype; a fully masked row gives zeros. On the card
+    the grid kernel (``csrc/paged_attention_grid.cu``) takes any page
+    size and head_dim 64; on the CPU the plain version, which
+    like the kernel (and the TPU's grid kernel) computes in f32 and
+    rounds the result to q.dtype once."""
+    if starts is None:
+        starts = torch.zeros_like(lengths)
+    if _route(q) == "cpu":
+        return paged_decode_attention_grid_ref(q, k_pages, v_pages,
+                                               block_tables, lengths, starts)
+    return _launch_grid("paged_decode_attention_grid", q, k_pages, v_pages,
+                        None, block_tables, lengths, starts)
+
+
+def paged_decode_attention_quant_grid(q, k_pages, v_pages, k_scale, v_scale,
+                                      block_tables, lengths, starts=None):
+    """INT8-KV normalized attention (see paged_decode_attention_grid):
+    k_scale/v_scale f32 (P, NH, ps) multiply K and V before the dots."""
+    if starts is None:
+        starts = torch.zeros_like(lengths)
+    if _route(q) == "cpu":
+        return paged_decode_attention_quant_grid_ref(
+            q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
+            starts)
+    return _launch_grid("paged_decode_attention_quant_grid", q, k_pages,
+                        v_pages, (k_scale, v_scale), block_tables, lengths,
+                        starts)
+
+
 def _normalize(acc, l, dtype):
     l = torch.where(l == 0.0, 1.0, l)
     return (acc / l[..., None]).to(dtype)
@@ -319,7 +421,12 @@ def _normalize(acc, l, dtype):
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
                            starts=None):
     """Normalized flash-decode over a float/bf16 pool: (B, NH, HS) in
-    q.dtype; a fully masked row gives zeros (l == 0 → 1)."""
+    q.dtype; a fully masked row gives zeros. As in the JAX package, a page
+    size that is not a multiple of 128 goes through the grid entry, and
+    the others divide the single-query parts by l (l == 0 → 1)."""
+    if k_pages.shape[3] % 128 != 0:
+        return paged_decode_attention_grid(q, k_pages, v_pages, block_tables,
+                                           lengths, starts)
     acc, _, l = paged_decode_attention_parts(q, k_pages, v_pages,
                                              block_tables, lengths, starts)
     return _normalize(acc, l, q.dtype)
@@ -328,6 +435,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
 def paged_decode_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
                                  block_tables, lengths, starts=None):
     """Normalized INT8-KV flash-decode (see paged_decode_attention)."""
+    if k_pages.shape[3] % 128 != 0:
+        return paged_decode_attention_quant_grid(
+            q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
+            starts)
     acc, _, l = paged_decode_attention_quant_parts(
         q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths, starts)
     return _normalize(acc, l, q.dtype)

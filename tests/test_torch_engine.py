@@ -91,21 +91,26 @@ def test_run_stop_tokens_equal_jax(weights):
 
 def test_engine_counts_one_launch_per_layer_and_step(weights):
     """decode_steps counts device decode steps: each runs one paged
-    attention call per layer (the launch count chip_smoke.py checks on
-    the card)."""
+    attention call per layer (the launch counts chip_smoke.py checks on
+    the card): the parts entry in a chain step, the grid entry in a
+    single step at this page size (8, not a multiple of 128)."""
     import llmc_paged_tpu_torch.models.gpt2_paged as gp
     from llmc_paged_tpu_torch.ops import paged_attention as pa
-    calls = []
-    orig = pa.paged_decode_attention_parts
+    calls = {"parts": 0, "grid": 0}
+    orig = {"parts": pa.paged_decode_attention_parts,
+            "grid": pa.paged_decode_attention_grid}
 
-    def counting(*a, **k):
-        calls.append(1)
-        return orig(*a, **k)
+    def counting(kind):
+        def fn(*a, **k):
+            calls[kind] += 1
+            return orig[kind](*a, **k)
+        return fn
 
-    # the chunk path calls it through gpt2_paged, the single step through
-    # the normalized wrapper in paged_attention
+    # the chunk path calls the parts entry through gpt2_paged, the single
+    # step the normalized wrapper, which routes to the grid entry
     gp.paged_decode_attention_parts = pa.paged_decode_attention_parts = \
-        counting
+        counting("parts")
+    pa.paged_decode_attention_grid = counting("grid")
     try:
         te = TEngine(weights, port_cfg(),
                      _econf(TPageConfig, TEngineConfig, 9), device="cpu")
@@ -113,8 +118,12 @@ def test_engine_counts_one_launch_per_layer_and_step(weights):
                 for i, p in enumerate(_prompts())])
     finally:
         gp.paged_decode_attention_parts = pa.paged_decode_attention_parts = \
-            orig
-    assert len(calls) == port_cfg().num_layers * te.stats["decode_steps"]
+            orig["parts"]
+        pa.paged_decode_attention_grid = orig["grid"]
+    L, st = port_cfg().num_layers, te.stats
+    assert st["single_steps"] >= 1
+    assert calls["grid"] == L * st["single_steps"]
+    assert calls["parts"] == L * (st["decode_steps"] - st["single_steps"])
 
 
 def test_run_reuses_the_pool_and_validates(weights):

@@ -89,20 +89,27 @@ def test_options_outside_the_slice_raise():
     base = EngineConfig(greedy=True, page=PageConfig(page_size=8,
                                                      pages_per_seq=4))
     for change in (dict(mesh_shape={"model": 2}),
-                   dict(device_sampling=True), dict(greedy=False),
-                   dict(cache_mode="dense")):
+                   dict(device_sampling=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(params, cfg, dataclasses.replace(base, **change),
                             device="cpu")
-    # speculative decode and prefix caching are in the port: they build
+    # speculative decode, prefix caching, host sampling and the dense and
+    # no-cache modes are in the port: they build
     for change in (dict(spec_k=2), dict(spec_k=4, page=dataclasses.replace(
-            base.page, prefix_cache=True))):
+            base.page, prefix_cache=True)), dict(greedy=False),
+            dict(cache_mode="dense"), dict(cache_mode="none")):
         InferenceEngine(params, cfg, dataclasses.replace(base, **change),
                         device="cpu")
     eng = InferenceEngine(params, cfg, base, device="cpu")
-    for kw in (dict(logprobs=True), dict(frequency_penalty=0.5),
-               dict(temperature=0.7)):
+    for kw in (dict(logprobs=True), dict(frequency_penalty=0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng.run([Request(rid=0, prompt=[1, 2], max_new_tokens=2, **kw)])
+    # a per-request sampling override runs; invalid values are refused
+    done = eng.run([Request(rid=0, prompt=[1, 2], max_new_tokens=2,
+                            temperature=0.7)])
+    assert len(done[0].generated) == 2
+    for kw in (dict(temperature=-1.0), dict(top_k=0)):
+        with pytest.raises(ValueError):
             eng.run([Request(rid=0, prompt=[1, 2], max_new_tokens=2, **kw)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.run([Request(rid=0, prompt=[1, 2], max_new_tokens=2)],

@@ -1,6 +1,6 @@
-"""The CUDA flash-decode parts kernels (single-query and multi-query)
-against their plain PyTorch versions, on the card (marked ``cuda``;
-skipped where there is no GPU).
+"""The CUDA paged-attention kernels (the single-query and multi-query
+parts kernels, the normalized grid kernel) against their plain PyTorch
+versions, on the card (marked ``cuda``; skipped where there is no GPU).
 
 This file imports no JAX, so it also runs on a GPU machine without it:
 
@@ -146,3 +146,83 @@ def test_mq_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
     with pytest.raises(ValueError, match="shared memory"):
         T.paged_decode_attention_parts_mq(q[:1], big, big, tables[:1, :1],
                                           lengths[:1], starts[:1])
+
+
+def _grid_case(ps, seed=0, B=6, pps=4):
+    """Ragged lengths, a zero-length row, a start >= length row (length 5,
+    start 7), window starts masking whole pages."""
+    rng = np.random.default_rng(seed)
+    P = B * pps + 3
+    q = rng.standard_normal((B, NH, HS)).astype(np.float32)
+    k, v = (rng.standard_normal((P, NH, HS, ps)).astype(np.float32)
+            for _ in range(2))
+    ks, vs = (rng.uniform(1e-3, 2e-2, (P, NH, ps)).astype(np.float32)
+              for _ in range(2))
+    kq, vq = (rng.integers(-127, 128, (P, NH, HS, ps)).astype(np.int8)
+              for _ in range(2))
+    tables = rng.permutation(P)[: B * pps].reshape(B, pps).astype(np.int32)
+    cap = ps * pps
+    lengths = np.array([cap, 0, 5, ps + 3, cap - 3, 1], np.int32)
+    starts = np.array([ps + 1, 0, 7, 0, cap - 2 * ps + 1, 0], np.int32)
+    return q, (k, v), (kq, vq, ks, vs), tables, lengths, starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("ps", [8, 16, 32, 96])
+def test_grid_kernel_matches_plain_on_the_card(cuda, ps, kv, qd):  # noqa: F811
+    """The normalized grid kernel vs its plain version, reached through
+    the normalized wrappers (ps % 128 != 0 routes there). Tolerance: an
+    f32 output within 1e-5 abs + 1e-5 rel (f32 sums in another order); a
+    bf16 output within one bf16 ulp (both compute in f32 and round once)
+    plus 1e-6 (the f32 sums differ by ~1e-7 of the values they sum, more
+    than a bf16 ulp of an output near 0). The zero-length and
+    start >= length rows are exact zeros."""
+    q, fpool, qpool, tables, lengths, starts = _grid_case(ps, seed=ps)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    tq = torch.from_numpy(q).to(cuda).to(dt[qd])
+    idx = [torch.from_numpy(a).to(cuda) for a in (tables, lengths, starts)]
+    if kv == "int8":
+        pool = [torch.from_numpy(a).to(cuda) for a in qpool]
+        fn, ref_fn = (T.paged_decode_attention_quant,
+                      T.paged_decode_attention_quant_grid_ref)
+        name = "paged_decode_attention_quant_grid"
+    else:
+        pool = [torch.from_numpy(a).to(cuda).to(dt[kv]) for a in fpool]
+        fn, ref_fn = (T.paged_decode_attention,
+                      T.paged_decode_attention_grid_ref)
+        name = "paged_decode_attention_grid"
+    before = T.LAUNCHES[name]
+    got = fn(tq, *pool, *idx)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[name] == before + 1
+    ref = ref_fn(tq, *pool, *idx)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    g, r = got.float(), ref.float()
+    if qd == "bfloat16":
+        ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(
+            2.0 ** -126))) - 7)
+        assert bool(((g - r).abs() <= ulp + 1e-6).all())
+    else:
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+    assert bool((g[1] == 0).all()) and bool((g[2] == 0).all())
+
+
+@pytest.mark.cuda
+def test_grid_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
+    q, (k, v), _, tables, lengths, starts = _grid_case(8)
+    q, k, v, tables, lengths, starts = (
+        torch.from_numpy(x).to(cuda)
+        for x in (q, k, v, tables, lengths, starts))
+    with pytest.raises(ValueError, match="head_dim"):
+        T.paged_decode_attention_grid(q[..., :48].contiguous(),
+                                      k[:, :, :48].contiguous(),
+                                      v[:, :, :48].contiguous(), tables,
+                                      lengths, starts)
+    with pytest.raises(TypeError):
+        T.paged_decode_attention_grid(q, k.half(), v.half(), tables,
+                                      lengths, starts)
+    with pytest.raises(ValueError, match="is on"):
+        T.paged_decode_attention_grid(q, k, v, tables, lengths.cpu(),
+                                      starts)

@@ -6,8 +6,11 @@ ragged and zero lengths, window starts and fully masked pages, ps in
 {8, 32, 128}; one tiny ps=128 case against the JAX flat Pallas kernel in
 interpret mode. The same for the multi-query parts (KQ queries a row,
 against paged_decode_attention[_quant]_parts_mq_xla and the JAX flat mq
-kernel in interpret mode). The CUDA kernels against the plain versions
-are in test_torch_kernels_cuda.py (they run on the card).
+kernel in interpret mode). The normalized grid entries (the kernel of
+the normalized wrappers at page sizes that are not a multiple of 128)
+against the JAX package's grid Pallas kernels in interpret mode. The
+CUDA kernels against the plain versions are in test_torch_kernels_cuda.py
+(they run on the card).
 """
 
 import jax.numpy as jnp
@@ -192,3 +195,104 @@ def test_cpu_route_counts_no_mq_launch():
     _port_parts_mq(*_mq_case(8, 2, True, seed=0))
     assert T.LAUNCHES["paged_decode_attention_parts_mq"] == 0
     assert T.LAUNCHES["paged_decode_attention_quant_parts_mq"] == 0
+
+
+# ---- the normalized grid entries --------------------------------------------
+
+def _grid_case(ps, seed):
+    """Ragged lengths, a zero-length row, window starts masking whole
+    pages, and a start >= length row (length 5, start 7: the JAX
+    package's fully-masked-page case)."""
+    rng = np.random.default_rng(seed)
+    B, pps = 5, 4
+    P = B * pps + 3
+    q = rng.standard_normal((B, NH, HS)).astype(np.float32)
+    k, v = (rng.standard_normal((P, NH, HS, ps)).astype(np.float32)
+            for _ in range(2))
+    tables = rng.permutation(P)[: B * pps].reshape(B, pps).astype(np.int32)
+    cap = ps * pps
+    lengths = np.array([cap, 0, ps + 3, 5, cap - 3], np.int32)
+    starts = np.array([ps + 1, 0, 0, 7, cap - 2 * ps + 1], np.int32)
+    return q, k, v, tables, lengths, starts
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significant bits)."""
+    ax = np.maximum(np.abs(x), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(ax)) - 7)
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("qd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ps", [8, 16, 32, 96])
+def test_grid_plain_matches_jax_grid_kernel_interpret(ps, qd, kv):
+    """The port's CPU route of paged_decode_attention[_quant]_grid (and of
+    the normalized wrappers, which route there at ps % 128 != 0) against
+    the JAX grid Pallas kernels run in interpret mode on the same values.
+    Tolerances: an f32 q within 1e-5 (f32 sums in another order); a bf16
+    q within one bf16 ulp of the output (both compute in f32 and round
+    once to bf16). Masked rows give exact zeros."""
+    from llmc_paged_tpu.kv.layouts import quantize_pages
+    q, k, v, tables, lengths, starts = _grid_case(ps, seed=ps)
+    jdt = jnp.bfloat16 if qd == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if qd == "bfloat16" else torch.float32
+    jq = jnp.asarray(q).astype(jdt)
+    tq = torch.from_numpy(np.array(jq.astype(jnp.float32))).to(tdt)
+    jidx = [jnp.asarray(a) for a in (tables, lengths, starts)]
+    tidx = [torch.from_numpy(a) for a in (tables, lengths, starts)]
+    if kv == "int8":
+        kq, ks = quantize_pages(jnp.asarray(k))
+        vq, vs = quantize_pages(jnp.asarray(v))
+        jpool = (kq, vq, ks, vs)
+        ref = J.paged_decode_attention_quant_grid(jq, *jpool, *jidx,
+                                                  interpret=True)
+        tpool = [torch.from_numpy(np.array(a)) for a in jpool]
+        outs = [T.paged_decode_attention_quant_grid(tq, *tpool, *tidx),
+                T.paged_decode_attention_quant(tq, *tpool, *tidx)]
+    else:
+        pdt = jnp.bfloat16 if kv == "bfloat16" else jnp.float32
+        jpool = (jnp.asarray(k).astype(pdt), jnp.asarray(v).astype(pdt))
+        ref = J.paged_decode_attention_grid(jq, *jpool, *jidx,
+                                            interpret=True)
+        tpool = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            torch.bfloat16 if kv == "bfloat16" else torch.float32)
+            for a in jpool]
+        outs = [T.paged_decode_attention_grid(tq, *tpool, *tidx),
+                T.paged_decode_attention(tq, *tpool, *tidx)]
+    r = np.asarray(ref.astype(jnp.float32))
+    for got in outs:
+        assert got.dtype == tdt and tuple(got.shape) == r.shape
+        g = got.float().numpy()
+        if qd == "bfloat16":
+            assert np.all(np.abs(g - r) <= _bf16_ulp(r))
+        else:
+            np.testing.assert_allclose(g, r, atol=ATOL, rtol=0)
+        assert np.all(g[1] == 0) and np.all(g[3] == 0)   # empty, masked
+
+
+@pytest.mark.parametrize("ps", [32, 128])
+def test_normalized_wrappers_route_by_page_size(ps):
+    """ps % 128 != 0 → the grid entry; ps % 128 == 0 → parts / l, as in
+    the JAX package. On the CPU neither counts a launch."""
+    q, pool, tables, lengths, starts = _case(ps, False, seed=9)
+    t = [torch.from_numpy(np.ascontiguousarray(x))
+         for x in (q, *pool, tables, lengths, starts)]
+    for key in T.LAUNCHES:
+        T.LAUNCHES[key] = 0
+    calls = []
+    orig_grid, orig_parts = (T.paged_decode_attention_grid,
+                             T.paged_decode_attention_parts)
+    T.paged_decode_attention_grid = (
+        lambda *a, **k: calls.append("grid") or orig_grid(*a, **k))
+    T.paged_decode_attention_parts = (
+        lambda *a, **k: calls.append("parts") or orig_parts(*a, **k))
+    try:
+        out = T.paged_decode_attention(*t)
+    finally:
+        T.paged_decode_attention_grid = orig_grid
+        T.paged_decode_attention_parts = orig_parts
+    assert calls == (["grid"] if ps % 128 else ["parts"])
+    np.testing.assert_allclose(out.numpy(),
+                               T.paged_decode_attention_ref(*t).numpy(),
+                               atol=ATOL, rtol=0)
+    assert all(v == 0 for v in T.LAUNCHES.values())
