@@ -46,9 +46,21 @@ Phases (any failed check raises, and the script exits non-zero):
      sampler timed alone; the fp32 streams against --no-kernel; again
      with --dtype int8 --activation-dtype bfloat16;
  10. modes: --mode none, dense and paged at --batch 1, fp32, greedy, 32
-     new tokens: the three streams are identical.
-The line before the last is a JSON object {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}.
+     new tokens: the three streams are identical;
+ 11. the kernel lab (llmc_paged_tpu_torch/ops/dev) in process: the sweeps
+     of bench_int8_matmul (--set all), bench_layernorm, bench_softmax,
+     bench_matmul, bench_paged_attention, bench_fusion and lab_flatwide,
+     every validated version held against its reference; the launches of
+     int8_matmul, layernorm_rows, softmax_rows and flatwide_parts equal
+     the calls the harness made (the full tables go to
+     build/chip_smoke_lab.txt); then each of those kernels' time and its
+     plain version's from the sweeps, at some of the lab's shapes,
+     beside its bound and one PyTorch call of the same function
+     (library_ms), flatwide beside the parts kernel on the same tensors.
+Every time is the lab harness's: CUDA events over launches queued behind
+a sleep kernel, the median of 3 runs.
+The line before the last is a JSON object {"kernels": [...]} (twelve
+wrappers); the last line is {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a GPU or outside a checkout
 that holds the package.
@@ -71,6 +83,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (dense): HBM bytes/s and fp32 (non-tensor) ops/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_OPS_S = 989e12      # tensor cores, dense
 TOL_ABS, TOL_REL = 1e-4, 1e-4
 KERNEL_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention.cu"
 TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:248"
@@ -78,7 +91,9 @@ MQ_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention_mq.cu"
 MQ_TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:481"
 GRID_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention_grid.cu"
 GRID_TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:750"
-KERNELS = ("paged_attention", "paged_attention_mq", "paged_attention_grid")
+KERNELS = ("paged_attention", "paged_attention_mq", "paged_attention_grid",
+           "int8_matmul", "layernorm", "softmax", "lab_flatwide")
+CSRC = "llmc_paged_tpu_torch/csrc/"
 
 
 def log(msg: str) -> None:
@@ -180,21 +195,13 @@ def max_err(torch, got, ref):
     return worst, ok
 
 
-def device_ms(torch, fn, iters=200):
-    """Device time of one call: launches queue behind a sleep kernel, so
-    the card runs them back to back whatever the host's launch cost."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def device_ms(fn, iters=200):
+    """Device time (ms) of one call by the kernel lab's timer
+    (harness.benchmark): the launches queue behind a sleep kernel, so the
+    card runs them back to back whatever the host's launch cost; CUDA
+    events, the median of 3 runs."""
+    from llmc_paged_tpu_torch.ops.dev.harness import benchmark
+    return benchmark(fn, (), iters, device="cuda")
 
 
 def sector_bytes(mask, itemsize):
@@ -242,11 +249,11 @@ def parts_cost(q, pool, tables, lengths, starts, grid=False):
 
 def time_case(torch, pa, q, pool, tables, lengths, starts, grid=False):
     """Kernel and plain device times (ms) and the bound of one case."""
-    ms = device_ms(torch, lambda: run_parts(pa, q, pool, tables, lengths,
-                                            starts, grid=grid))
-    plain = device_ms(torch, lambda: run_parts(
-        pa, q, pool, tables, lengths, starts, plain=True, grid=grid),
-        iters=20)
+    ms = device_ms(lambda: run_parts(pa, q, pool, tables, lengths, starts,
+                                     grid=grid))
+    plain = device_ms(lambda: run_parts(pa, q, pool, tables, lengths,
+                                        starts, plain=True, grid=grid),
+                      iters=20)
     nbytes, ops = parts_cost(q, pool, tables, lengths, starts, grid=grid)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_F32_OPS_S * 1e3
@@ -566,6 +573,202 @@ def phase_cli(torch, pa, params32, cfg, device):
               f"modes: the streams differ: {modes}")
         log("  none, dense and paged: identical 32-token streams")
     return launches
+
+
+# ---- phase 11: the kernel lab ------------------------------------------------
+
+# timed calls a run of the lab's sweeps (their default is 50)
+LAB_ITERS = 20
+# configurations each lab kernel's time is logged at, beside its bound
+# and its library call; the JSON line takes the last
+INT8_TIMED = ((8, 2304, 768), (256, 3072, 768), (8, 51200, 768))
+FLATWIDE_HEADLINE = (8, 12, 64, 28, 128, 3)     # phase 3's decode shape
+LabKernel = collections.namedtuple(
+    "LabKernel", "source replaces module version plain timed")
+# the lab's wrappers, by LAUNCHES key: the source, the TPU kernel it
+# replaces, the lab module and version that launch it, and the version
+# in that module that is its plain version
+LAB_KERNELS = {
+    "int8_matmul_bf16": LabKernel(
+        "int8_matmul.cu", "llmc_paged_tpu/ops/int8.py:75",
+        "bench_int8_matmul", "v1_cuda_fused", "int8_linear (port)",
+        INT8_TIMED),
+    "int8_matmul_fp32": LabKernel(
+        "int8_matmul.cu", "llmc_paged_tpu/ops/int8.py:75",
+        "bench_int8_matmul", "v1_cuda_fp32exact", "v0_dequant_ref (naive)",
+        INT8_TIMED),
+    "layernorm_rows": LabKernel(
+        "layernorm.cu", "llmc_paged_tpu/ops/dev/bench_layernorm.py:26",
+        "bench_layernorm", "v1_cuda_warp_row", "v0_torch_ops (plain)",
+        ((8, 768), (8192, 768))),
+    "softmax_rows": LabKernel(
+        "softmax.cu", "llmc_paged_tpu/ops/dev/bench_softmax.py:27",
+        "bench_softmax", "v1_cuda_row_in_smem", "v0_max_exp_sum (plain)",
+        ((8, 50304),)),
+    "flatwide_parts": LabKernel(
+        "lab_flatwide.cu", "llmc_paged_tpu/ops/dev/lab_flatwide.py:57",
+        "lab_flatwide", "v2_cuda_flatwide", "v0_gather_ref (naive)",
+        (FLATWIDE_HEADLINE + ("f32",),)),
+    "flatwide_quant_parts": LabKernel(
+        "lab_flatwide.cu", "llmc_paged_tpu/ops/dev/lab_flatwide.py:57",
+        "lab_flatwide", "v2_cuda_flatwide", "v0_gather_ref (naive)",
+        (FLATWIDE_HEADLINE + ("int8",),)),
+}
+
+
+def lab_key(module, rec):
+    """The LAUNCHES key of the wrapper a sweep record's version launches
+    (flatwide's by the pool of its configuration), or None."""
+    for key, k in LAB_KERNELS.items():
+        if ((k.module, k.version) == (module, rec["name"])
+                and (module != "lab_flatwide"
+                     or rec["config"][-1] == k.timed[0][-1])):
+            return key
+    return None
+
+
+def lab_counts():
+    """The LAUNCHES dicts of the lab's four wrappers' modules."""
+    from llmc_paged_tpu_torch.ops import int8
+    from llmc_paged_tpu_torch.ops.dev import (bench_layernorm, bench_softmax,
+                                              lab_flatwide)
+    return (int8.LAUNCHES, bench_layernorm.LAUNCHES, bench_softmax.LAUNCHES,
+            lab_flatwide.LAUNCHES)
+
+
+def phase_lab_sweeps():
+    """Every lab module's entry point in process on the card (its sweep:
+    each validated version against its reference, then timed). Returns
+    the lab wrappers' launches, checked equal to the calls the harness
+    made to the versions that launch them, and each module's records."""
+    from llmc_paged_tpu_torch.ops.dev import (
+        bench_fusion, bench_int8_matmul, bench_layernorm, bench_matmul,
+        bench_paged_attention, bench_softmax, lab_flatwide)
+    counts = lab_counts()
+    for c in counts:
+        for k in c:
+            c[k] = 0
+    want = dict.fromkeys(LAB_KERNELS, 0)
+    records = {}
+    out_dir = os.path.join(HERE, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_lab.txt"), "w") as f:
+        for mod, argv in ((bench_int8_matmul, ["--set", "all"]),
+                          (bench_layernorm, []), (bench_softmax, []),
+                          (bench_matmul, []), (bench_paged_attention, []),
+                          (bench_fusion, []), (lab_flatwide, [])):
+            name = mod.__name__.rsplit(".", 1)[-1]
+            t0 = time.monotonic()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                records[name] = mod.main(argv + ["--iters", str(LAB_ITERS)])
+            f.write(f"== {name} {' '.join(argv)}\n{buf.getvalue()}")
+            valid = [r for r in records[name] if r["validated"]]
+            log(f"  {name}: {len(records[name])} runs, {len(valid)} validated"
+                f" (max|d| "
+                f"{max((r['max_abs_err'] for r in valid), default=0):.3e}), "
+                f"{time.monotonic() - t0:.1f} s; us a call:")
+            by_cfg = {}
+            for r in records[name]:
+                by_cfg.setdefault(r["config"], []).append(
+                    f"{r['name'].split(' ')[0]} {r['ms'] * 1e3:.2f}")
+                key = lab_key(name, r)
+                if key:
+                    check(r["validated"], f"{name} {r['name']} {r['config']}"
+                          " was not validated")
+                    want[key] += r["calls"]
+            for cfg, cells in by_cfg.items():
+                log(f"    {cfg}: {', '.join(cells)}")
+    got = {k: v for c in counts for k, v in c.items()}
+    check(got == want, f"lab launches {got} != the harness's calls {want}")
+    check(all(v > 0 for v in got.values()), f"a lab kernel never ran: {got}")
+    return got, records
+
+
+def lab_cost(torch, key, cfg, device):
+    """(bytes, operations, peak operations/s) of one call of a lab kernel
+    on the sweep's inputs at ``cfg`` (made again from the module's seed),
+    and one PyTorch call of the same function with its name (None for
+    flatwide: no PyTorch call reads K/V through a block table)."""
+    from llmc_paged_tpu_torch.ops import int8 as Q
+    from llmc_paged_tpu_torch.ops.dev import bench_int8_matmul
+    from llmc_paged_tpu_torch.ops.dev import bench_layernorm as LN
+    from llmc_paged_tpu_torch.ops.dev import bench_softmax as SM
+    from llmc_paged_tpu_torch.ops.dev import lab_flatwide as FW
+    from llmc_paged_tpu_torch.ops.layers import LN_EPS
+    if key.startswith("int8_matmul"):
+        B, OC, IC = cfg
+        x, wq, s = bench_int8_matmul.make_args(B, OC, IC, device)[:3]
+        xb, sb = x.bfloat16(), s.bfloat16()
+        library = lambda: torch.ops.aten._weight_int8pack_mm(xb, wq, sb)
+        try:
+            library()
+            torch.cuda.synchronize()
+            lib_name = "torch.ops.aten._weight_int8pack_mm at bf16"
+        except (RuntimeError, NotImplementedError) as e:
+            wdq = Q.dequantize(wq, s).bfloat16()
+            library = lambda: torch.matmul(xb, wdq.t())
+            lib_name = ("bf16 torch.matmul over a pre-dequantized weight "
+                        f"(_weight_int8pack_mm: {str(e).splitlines()[0]})")
+        peak = PEAK_BF16_OPS_S if key.endswith("bf16") else PEAK_F32_OPS_S
+        return (OC * IC + B * IC * 4 + B * OC * 4 + OC * 4, 2 * B * OC * IC,
+                peak, library, lib_name)
+    if key == "layernorm_rows":
+        R, C = cfg
+        x, w, b = LN.make_args(R, C, device)
+        return (2 * R * C * 4 + 2 * C * 4, 8 * R * C, PEAK_F32_OPS_S,
+                lambda: torch.nn.functional.layer_norm(x, (C,), w, b, LN_EPS),
+                "torch.nn.functional.layer_norm")
+    if key == "softmax_rows":
+        B, V = cfg
+        (x,) = SM.make_args(B, V, device)
+        return (2 * B * V * 4, 5 * B * V, PEAK_F32_OPS_S,
+                lambda: torch.softmax(x, dim=-1), "torch.softmax")
+    q, k, v, scales, tables, lengths, starts = FW.make_args(*cfg,
+                                                            device=device)
+    nbytes, ops = parts_cost(q, (k, v) + tuple(scales or ()), tables,
+                             lengths, starts)
+    return nbytes, ops, PEAK_F32_OPS_S, None, None
+
+
+def phase_lab_times(torch, records, device):
+    """Each lab kernel's time and its plain version's at the logged
+    configurations, from the sweeps' records, beside the bound for those
+    inputs and one PyTorch call of the same function (timed here);
+    flatwide beside the parts kernel the sweep ran on the same tensors.
+    Returns per-wrapper records for the JSON line."""
+    out = {}
+    for key, k in LAB_KERNELS.items():
+        recs = records[k.module]
+        err = max(r["max_abs_err"] for r in recs if lab_key(k.module, r)
+                  == key)
+
+        def ms_of(version, cfg):
+            return next(r["ms"] for r in recs
+                        if (r["name"], r["config"]) == (version, cfg))
+
+        for cfg in k.timed:
+            nbytes, ops, peak, library, lib_name = lab_cost(torch, key, cfg,
+                                                            device)
+            t_bytes = nbytes / PEAK_BYTES_S * 1e3
+            t_ops = ops / peak * 1e3
+            t = dict(ms=ms_of(k.version, cfg),
+                     plain_ms=ms_of(k.plain, cfg), max_abs_err=err,
+                     library_ms=None if library is None
+                     else device_ms(library),
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+            lib = ("none" if library is None
+                   else f"{t['library_ms'] * 1e3:.2f} us ({lib_name})")
+            beside = ("" if k.module != "lab_flatwide" else
+                      f", the parts kernel on the same tensors "
+                      f"{ms_of('v1_cuda_online_parts', cfg) * 1e3:.2f} us")
+            log(f"  {key} {cfg}: kernel {t['ms'] * 1e3:.2f} us, plain "
+                f"{t['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+                f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
+                f"({nbytes} B, {ops} ops){beside}")
+            out[key] = t
+    return out
 
 
 def main() -> int:
@@ -888,6 +1091,13 @@ def main() -> int:
         "1337), 8 rows x 64-token prompts, 64 new tokens, top-k 40")
     launches_cli = phase_cli(torch, pa, params32, cfg, device)
 
+    # 11. the kernel lab (its main path: the sweeps), then its kernels
+    # timed
+    log(f"phase 11: the kernel lab, {LAB_ITERS} timed calls a run")
+    lab_launches, lab_records = phase_lab_sweeps()
+    log(f"  launches {lab_launches} (= the harness's calls)")
+    lab = phase_lab_times(torch, lab_records, device)
+
     kernels = []
     for wrapper, launches, source, replaces in (
             ("paged_decode_attention_parts",
@@ -915,6 +1125,14 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None})
+    for key, k in LAB_KERNELS.items():
+        rec = lab[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": CSRC + k.source,
+            "replaces": k.replaces, "launches": lab_launches[key],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

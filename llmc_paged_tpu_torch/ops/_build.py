@@ -113,3 +113,39 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _LIBS[name] = lib
         return lib
+
+
+def entry(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """C function ``fn`` of ``csrc/<name>.cu`` with its argument types
+    declared (pointers and the stream as c_void_p, so ctypes never cuts
+    them to 32 bits) and an int result: cudaGetLastError() after the
+    launch."""
+    f = getattr(load(name), fn)
+    if f.argtypes is None:
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return f
+
+
+def check_operand(name, t, dtypes, shape, device) -> None:
+    """Raise unless tensor ``t`` is on ``device``, of one of ``dtypes``,
+    of ``shape`` and contiguous: what a kernel takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, not {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(f, device, args, what: str) -> None:
+    """Call C entry ``f`` with ``args`` and the current stream of
+    ``device``; raise if it returns a CUDA error (a refused launch never
+    runs, and no later synchronize reports it)."""
+    import torch
+    with torch.cuda.device(device):
+        rc = f(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")

@@ -91,3 +91,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.where(valid, probs, torch.zeros((), dtype=probs.dtype,
                                                   device=probs.device))
     return torch.einsum("bhk,bhkd->bhd", probs, v_cache)
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          targets: torch.Tensor) -> torch.Tensor:
+    """Mean NLL over all (B, T) positions: logits (B, T, V), targets
+    (B, T) int (crossentropy_forward, train_gpt2.c:427-441, mean at
+    :796-806); log-softmax in the logits' dtype, as the JAX package."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    return nll.mean()

@@ -33,6 +33,7 @@ import math
 import torch
 
 from llmc_paged_tpu_torch.kv.layouts import dequant_layer, gather_layer_kv
+from llmc_paged_tpu_torch.ops._build import check_operand, entry, launch
 from llmc_paged_tpu_torch.ops import layers as L
 
 NEG_INF = -1e30
@@ -174,34 +175,18 @@ def paged_decode_attention_quant_grid_ref(q, k_pages, v_pages, k_scale,
 def _kernel_fn(kind: str):
     """The C entry point of a kernel: "sq" (single-query parts), "mq"
     (multi-query parts) or "grid" (normalized)."""
-    from llmc_paged_tpu_torch.ops import _build
-
     if kind == "mq":
-        fn = _build.load("paged_attention_mq").flash_decode_parts_mq
-        n_ptr, n_int = 11, 7    # B, KQ, NH, HS, ps, pps, qtile
+        lib, fn, n_ptr, n_int = ("paged_attention_mq", "flash_decode_parts_mq",
+                                 11, 7)   # B, KQ, NH, HS, ps, pps, qtile
     elif kind == "grid":
-        fn = _build.load("paged_attention_grid").paged_decode_grid
-        n_ptr, n_int = 9, 5     # out only; B, NH, HS, ps, pps
+        lib, fn, n_ptr, n_int = ("paged_attention_grid", "paged_decode_grid",
+                                 9, 5)    # out only; B, NH, HS, ps, pps
     else:
-        fn = _build.load("paged_attention").flash_decode_parts
-        n_ptr, n_int = 11, 5    # B, NH, HS, ps, pps
-    if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i32, i32] + [ptr] * n_ptr + [i32] * n_int
-                       + [ctypes.c_float, ptr])
-        fn.restype = i32
-    return fn
-
-
-def _check(name, t, dtypes, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        lib, fn, n_ptr, n_int = ("paged_attention", "flash_decode_parts",
+                                 11, 5)   # B, NH, HS, ps, pps
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return entry(lib, fn, [i32, i32] + [ptr] * n_ptr + [i32] * n_int
+                 + [ctypes.c_float, ptr])
 
 
 def _mq_smem_bytes(qtile: int, HS: int, ps: int) -> int:
@@ -230,35 +215,30 @@ def _check_operands(q, k_pages, v_pages, scales, block_tables, lengths,
     pps = block_tables.shape[-1]
     kv_dtypes = ((torch.int8,) if scales is not None
                  else (torch.float32, torch.bfloat16))
-    _check("q", q, (torch.float32, torch.bfloat16), q.shape, dev)
-    _check("k_pages", k_pages, kv_dtypes, (P, NH, HS, ps), dev)
-    _check("v_pages", v_pages, (k_pages.dtype,), (P, NH, HS, ps), dev)
-    _check("block_tables", block_tables, (torch.int32,), (B, pps), dev)
-    _check("lengths", lengths, (torch.int32,), (B,), dev)
-    _check("starts", starts, (torch.int32,), (B,), dev)
+    check_operand("q", q, (torch.float32, torch.bfloat16), q.shape, dev)
+    check_operand("k_pages", k_pages, kv_dtypes, (P, NH, HS, ps), dev)
+    check_operand("v_pages", v_pages, (k_pages.dtype,), (P, NH, HS, ps), dev)
+    check_operand("block_tables", block_tables, (torch.int32,), (B, pps), dev)
+    check_operand("lengths", lengths, (torch.int32,), (B,), dev)
+    check_operand("starts", starts, (torch.int32,), (B,), dev)
     if scales is not None:
         for nm, s in zip(("k_scale", "v_scale"), scales):
-            _check(nm, s, (torch.float32,), (P, NH, ps), dev)
+            check_operand(nm, s, (torch.float32,), (P, NH, ps), dev)
     return B, KQ, NH, HS, ps, pps
 
 
 def _call(wrapper, kind, q, k_pages, v_pages, scales, block_tables,
           lengths, starts, outs, dims):
     """Launch kernel ``kind`` on the current stream and count it."""
-    dev = q.device
     ks, vs = scales if scales is not None else (None, None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel_fn(kind)(
-            _KIND[q.dtype], _KIND[k_pages.dtype], q.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(),
-            ks.data_ptr() if ks is not None else None,
-            vs.data_ptr() if vs is not None else None,
-            block_tables.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
-            *(o.data_ptr() for o in outs), *dims,
-            1.0 / math.sqrt(q.shape[-1]), stream)
-    if rc != 0:
-        raise RuntimeError(f"{wrapper} launch failed: CUDA error {rc}")
+    launch(_kernel_fn(kind), q.device, (
+        _KIND[q.dtype], _KIND[k_pages.dtype], q.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(),
+        ks.data_ptr() if ks is not None else None,
+        vs.data_ptr() if vs is not None else None,
+        block_tables.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
+        *(o.data_ptr() for o in outs), *dims,
+        1.0 / math.sqrt(q.shape[-1])), wrapper)
     LAUNCHES[wrapper] += 1
 
 

@@ -226,3 +226,167 @@ def test_grid_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
     with pytest.raises(ValueError, match="is on"):
         T.paged_decode_attention_grid(q, k, v, tables, lengths.cpu(),
                                       starts)
+
+
+# ---- the kernel lab's kernels (int8_matmul, layernorm_rows, softmax_rows,
+# flatwide_parts) -----------------------------------------------------------
+
+def _within_bf16_ulp(got, ref):
+    """Every element within one bf16 ulp of |ref| plus 1e-6 (both sides
+    compute in f32 and round once; f32 sums in another order move an
+    output near 0 by more than its ulp)."""
+    g, r = got.float(), ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(
+        2.0 ** -126))) - 7)
+    return bool(((g - r).abs() <= ulp + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("IC", [64, 70, 768, 6400])
+@pytest.mark.parametrize("OC", [1, 96, 2304])
+@pytest.mark.parametrize("B", [1, 8, 256])
+def test_int8_matmul_matches_plain_on_the_card(cuda, B, OC, IC, xd):  # noqa: F811
+    """The int8 kernel vs its plain version in both compute modes: IC 70
+    takes the byte path (rows not 16-byte aligned), 64, 768 and 6400 the
+    16-byte vectors, and 6400 (the 1.5B fcproj width, above the kernel's
+    2048-column chunk) stages x chunk by chunk; OC 1 and 96 leave a
+    block's channels partly empty, B 1 and 256 its rows. Tolerance 1e-5
+    rel + 1e-5·max|ref| abs: f32 sums in another order."""
+    from llmc_paged_tpu_torch.ops import int8 as Q
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(B * 7 + OC + IC)
+    x = torch.from_numpy(rng.standard_normal((B, IC)).astype(np.float32))
+    w = torch.from_numpy((0.05 * rng.standard_normal((OC, IC)))
+                         .astype(np.float32))
+    wq, s = Q.quantize_per_row(w)
+    x, wq, s = x.to(cuda).to(getattr(torch, xd)), wq.to(cuda), s.to(cuda)
+    for bf16 in (True, False):
+        key = "int8_matmul_bf16" if bf16 else "int8_matmul_fp32"
+        before = Q.LAUNCHES[key]
+        got = Q.int8_matmul(x, wq, s, bf16_compute=bf16)
+        torch.cuda.synchronize()
+        assert Q.LAUNCHES[key] == before + 1
+        ref = Q.int8_matmul_ref(x, wq, s, bf16_compute=bf16)
+        assert got.dtype == torch.float32 and got.shape == (B, OC)
+        tol = 1e-5 * float(ref.abs().max())
+        torch.testing.assert_close(got, ref, atol=tol, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [64, 768, 1600])
+@pytest.mark.parametrize("R", [1, 8, 1000])
+def test_layernorm_rows_matches_plain_on_the_card(cuda, R, C, xd):  # noqa: F811
+    """The row layernorm kernel vs ops/layers.layernorm: f32 within 1e-5
+    abs + 1e-5 rel, bf16 within one ulp (statistics in f32, one
+    rounding)."""
+    from llmc_paged_tpu_torch.ops.dev import bench_layernorm as LN
+    from llmc_paged_tpu_torch.ops.layers import layernorm
+    rng = np.random.default_rng(R + C)
+    x, w, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda) for s in ((R, C), (C,), (C,)))
+    x = x.to(getattr(torch, xd))
+    before = LN.LAUNCHES["layernorm_rows"]
+    got = LN.layernorm_rows(x, w, b)
+    torch.cuda.synchronize()
+    assert LN.LAUNCHES["layernorm_rows"] == before + 1
+    ref = layernorm(x, w, b)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if xd == "bfloat16":
+        assert _within_bf16_ulp(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("V", [1000, 50257, 50304])
+@pytest.mark.parametrize("B", [1, 7, 8])
+def test_softmax_rows_matches_plain_on_the_card(cuda, B, V, xd):  # noqa: F811
+    """The vocab softmax kernel vs its plain version (max, exp, sum):
+    f32 within 1e-6 abs + 1e-5 rel, bf16 within one ulp."""
+    from llmc_paged_tpu_torch.ops.dev import bench_softmax as SM
+    rng = np.random.default_rng(B + V)
+    x = torch.from_numpy(4 * rng.standard_normal((B, V)).astype(np.float32))
+    x = x.to(cuda).to(getattr(torch, xd))
+    before = SM.LAUNCHES["softmax_rows"]
+    got = SM.softmax_rows(x)
+    torch.cuda.synchronize()
+    assert SM.LAUNCHES["softmax_rows"] == before + 1
+    ref = SM.softmax_rows_ref(x)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if xd == "bfloat16":
+        assert _within_bf16_ulp(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int8-qbf16"])
+@pytest.mark.parametrize("ps", [8, 32, 128])
+def test_flatwide_matches_plain_on_the_card(cuda, kv, ps):  # noqa: F811
+    """The flatwide parts kernel vs the plain parts versions on the
+    zero, ragged and windowed rows of ``_case`` (row 3: start > length).
+    Tolerance 1e-4 abs + 1e-4 rel: f32 sums in another order."""
+    from llmc_paged_tpu_torch.ops.dev import lab_flatwide as FW
+    quant = kv.startswith("int8")
+    q, pool, tables, lengths, starts = _case(ps, quant, seed=17)
+    a = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+         for x in (q, *pool, tables, lengths, starts)]
+    if kv == "int8-qbf16":
+        a[0] = a[0].to(torch.bfloat16)
+    if kv == "bfloat16":
+        a[1], a[2] = a[1].to(torch.bfloat16), a[2].to(torch.bfloat16)
+    if quant:
+        q, k, v, ks, vs, tables, lengths, starts = a
+        scales, key = (ks, vs), "flatwide_quant_parts"
+        ref = T.paged_decode_attention_quant_parts_ref(q, k, v, ks, vs, tables,
+                                                       lengths, starts)
+    else:
+        q, k, v, tables, lengths, starts = a
+        scales, key = None, "flatwide_parts"
+        ref = T.paged_decode_attention_parts_ref(q, k, v, tables, lengths,
+                                                 starts)
+    before = FW.LAUNCHES[key]
+    got = FW.flatwide_parts(q, k, v, tables, lengths, starts, scales)
+    torch.cuda.synchronize()
+    assert FW.LAUNCHES[key] == before + 1
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+    assert float(got[2][1].abs().max()) == 0.0     # the zero-length row
+    assert bool((got[1][3] == T.NEG_INF).all())    # start > length
+
+
+@pytest.mark.cuda
+def test_lab_kernels_reject_what_they_do_not_take(cuda):  # noqa: F811
+    from llmc_paged_tpu_torch.ops import int8 as Q
+    from llmc_paged_tpu_torch.ops.dev import bench_layernorm as LN
+    from llmc_paged_tpu_torch.ops.dev import bench_softmax as SM
+    from llmc_paged_tpu_torch.ops.dev import lab_flatwide as FW
+    x = torch.zeros(4, 64, device=cuda)
+    wq = torch.zeros(8, 64, dtype=torch.int8, device=cuda)
+    s = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError):
+        Q.int8_matmul(x.half(), wq, s)
+    with pytest.raises(ValueError, match="is on"):
+        Q.int8_matmul(x, wq, s.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        Q.int8_matmul(x, wq[:, :32].contiguous(), s)
+    with pytest.raises(ValueError, match="exceeds"):
+        LN.layernorm_rows(torch.zeros(2, 4096, device=cuda),
+                          torch.ones(4096, device=cuda),
+                          torch.zeros(4096, device=cuda))
+    with pytest.raises(ValueError, match="exceeds"):
+        SM.softmax_rows(torch.zeros(1, 60000, device=cuda))
+    q, pool, tables, lengths, starts = _case(8, False)
+    q, k, v, tables, lengths, starts = (
+        torch.from_numpy(x).to(cuda)
+        for x in (q, *pool, tables, lengths, starts))
+    with pytest.raises(ValueError, match="head_dim"):
+        FW.flatwide_parts(q[..., :32].contiguous(), k[:, :, :32].contiguous(),
+                          v[:, :, :32].contiguous(), tables, lengths, starts)
+    big = torch.zeros(2, NH, HS, 32768, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        FW.flatwide_parts(q[:1], big, big, tables[:1, :2], lengths[:1],
+                          starts[:1])
