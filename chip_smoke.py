@@ -5,8 +5,8 @@
 
 Phases (any failed check raises, and the script exits non-zero):
   1. device: name, power limit, torch/CUDA versions; TF32 off;
-  2. build: the CUDA kernels from the sources in the checkout, one nvcc
-     per source, all started together;
+  2. build: the eight CUDA kernel sources in the checkout, one nvcc per
+     source, all started together;
   3. kernels vs plain versions: the flash-decode parts kernel, the
      multi-query parts kernel and the normalized grid kernel against their
      plain PyTorch versions for
@@ -49,17 +49,24 @@ Phases (any failed check raises, and the script exits non-zero):
      new tokens: the three streams are identical;
  11. the kernel lab (llmc_paged_tpu_torch/ops/dev) in process: the sweeps
      of bench_int8_matmul (--set all), bench_layernorm, bench_softmax,
-     bench_matmul, bench_paged_attention, bench_fusion and lab_flatwide,
-     every validated version held against its reference; the launches of
-     int8_matmul, layernorm_rows, softmax_rows and flatwide_parts equal
-     the calls the harness made (the full tables go to
-     build/chip_smoke_lab.txt); then each of those kernels' time and its
-     plain version's from the sweeps, at some of the lab's shapes,
-     beside its bound and one PyTorch call of the same function
-     (library_ms), flatwide beside the parts kernel on the same tensors.
-Every time is the lab harness's: CUDA events over launches queued behind
-a sleep kernel, the median of 3 runs.
-The line before the last is a JSON object {"kernels": [...]} (twelve
+     bench_matmul, bench_paged_attention, bench_fusion, lab_flatwide and
+     lab_full_pool, every validated version held against its reference;
+     the launches of int8_matmul, layernorm_rows, softmax_rows,
+     flatwide_parts and the two full-pool wrappers equal the calls the
+     harness made (the full tables go to build/chip_smoke_lab.txt); then
+     each of those kernels' time and its plain version's from the
+     sweeps, at some of the lab's shapes, beside its bound and one
+     PyTorch call of the same function (library_ms), flatwide beside the
+     parts kernel and the full-pool kernel beside the grid kernel on the
+     same tensors;
+ 12. the decode-step probe (ops/dev/probe_decode.py main, in process):
+     every suite at --model 124m, then the GEMV and kernel suites at
+     --model 1558m; one log line a suite with its seconds (the full
+     tables go to build/chip_smoke_probe.txt); the paged-attention
+     launches equal the calls the probe made.
+Every kernel time is the lab harness's: CUDA events over launches queued
+behind a sleep kernel, the median of 3 runs.
+The line before the last is a JSON object {"kernels": [...]} (fourteen
 wrappers); the last line is {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a GPU or outside a checkout
@@ -92,12 +99,26 @@ MQ_TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:481"
 GRID_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention_grid.cu"
 GRID_TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:750"
 KERNELS = ("paged_attention", "paged_attention_mq", "paged_attention_grid",
-           "int8_matmul", "layernorm", "softmax", "lab_flatwide")
+           "int8_matmul", "layernorm", "softmax", "lab_flatwide",
+           "lab_full_pool")
 CSRC = "llmc_paged_tpu_torch/csrc/"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_PHASE = []     # (name, start) of the phase that runs
+
+
+def phase(msg: str) -> None:
+    """Log the seconds of the phase that ends here, then ``msg``, the
+    header of the next one ("phase N: ..."; "done" ends the last)."""
+    now = time.monotonic()
+    if _PHASE:
+        log(f"  ({_PHASE[-1][0]}: {now - _PHASE[-1][1]:.1f} s)")
+    _PHASE.append((msg.split(":")[0], now))
+    log(msg)
 
 
 class Failed(Exception):
@@ -556,8 +577,8 @@ def phase_cli(torch, pa, params32, cfg, device):
         log(f"  cli fp32 vs --no-kernel: {agree}/8 streams identical over "
             "64 sampled tokens, all agree on the first 16")
 
-        log("phase 10: --mode none, dense, paged at --batch 1, fp32, greedy,"
-            " 32 new tokens")
+        phase("phase 10: --mode none, dense, paged at --batch 1, fp32, greedy,"
+              " 32 new tokens")
         modes = {}
         for mode in ("none", "dense", "paged"):
             t0 = time.monotonic()
@@ -583,6 +604,8 @@ LAB_ITERS = 20
 # and its library call; the JSON line takes the last
 INT8_TIMED = ((8, 2304, 768), (256, 3072, 768), (8, 51200, 768))
 FLATWIDE_HEADLINE = (8, 12, 64, 28, 128, 3)     # phase 3's decode shape
+# the 124M decode shape over a 12-layer stacked pool (lab_full_pool)
+FULL_POOL_HEADLINE = (8, 12, 64, 12, 28, 128, 3)
 LabKernel = collections.namedtuple(
     "LabKernel", "source replaces module version plain timed")
 # the lab's wrappers, by LAUNCHES key: the source, the TPU kernel it
@@ -613,27 +636,38 @@ LAB_KERNELS = {
         "lab_flatwide.cu", "llmc_paged_tpu/ops/dev/lab_flatwide.py:57",
         "lab_flatwide", "v2_cuda_flatwide", "v0_gather_ref (naive)",
         (FLATWIDE_HEADLINE + ("int8",),)),
+    "paged_decode_attention_full": LabKernel(
+        "lab_full_pool.cu", "llmc_paged_tpu/ops/dev/lab_full_pool.py:65",
+        "lab_full_pool", "v2_cuda_full_pool", "v0_gather_ref (naive)",
+        (FULL_POOL_HEADLINE + ("f32",),)),
+    "paged_decode_attention_quant_full": LabKernel(
+        "lab_full_pool.cu", "llmc_paged_tpu/ops/dev/lab_full_pool.py:185",
+        "lab_full_pool", "v2_cuda_full_pool", "v0_gather_ref (naive)",
+        (FULL_POOL_HEADLINE + ("int8",),)),
 }
+# lab modules whose two wrappers one version launches, told apart by the
+# pool of the configuration (its last field)
+BY_POOL = ("lab_flatwide", "lab_full_pool")
 
 
 def lab_key(module, rec):
     """The LAUNCHES key of the wrapper a sweep record's version launches
-    (flatwide's by the pool of its configuration), or None."""
+    (in BY_POOL modules, by the pool of its configuration), or None."""
     for key, k in LAB_KERNELS.items():
         if ((k.module, k.version) == (module, rec["name"])
-                and (module != "lab_flatwide"
+                and (module not in BY_POOL
                      or rec["config"][-1] == k.timed[0][-1])):
             return key
     return None
 
 
 def lab_counts():
-    """The LAUNCHES dicts of the lab's four wrappers' modules."""
+    """The LAUNCHES dicts of the lab wrappers' modules."""
     from llmc_paged_tpu_torch.ops import int8
     from llmc_paged_tpu_torch.ops.dev import (bench_layernorm, bench_softmax,
-                                              lab_flatwide)
+                                              lab_flatwide, lab_full_pool)
     return (int8.LAUNCHES, bench_layernorm.LAUNCHES, bench_softmax.LAUNCHES,
-            lab_flatwide.LAUNCHES)
+            lab_flatwide.LAUNCHES, lab_full_pool.LAUNCHES)
 
 
 def phase_lab_sweeps():
@@ -643,7 +677,7 @@ def phase_lab_sweeps():
     made to the versions that launch them, and each module's records."""
     from llmc_paged_tpu_torch.ops.dev import (
         bench_fusion, bench_int8_matmul, bench_layernorm, bench_matmul,
-        bench_paged_attention, bench_softmax, lab_flatwide)
+        bench_paged_attention, bench_softmax, lab_flatwide, lab_full_pool)
     counts = lab_counts()
     for c in counts:
         for k in c:
@@ -656,7 +690,8 @@ def phase_lab_sweeps():
         for mod, argv in ((bench_int8_matmul, ["--set", "all"]),
                           (bench_layernorm, []), (bench_softmax, []),
                           (bench_matmul, []), (bench_paged_attention, []),
-                          (bench_fusion, []), (lab_flatwide, [])):
+                          (bench_fusion, []), (lab_flatwide, []),
+                          (lab_full_pool, [])):
             name = mod.__name__.rsplit(".", 1)[-1]
             t0 = time.monotonic()
             buf = io.StringIO()
@@ -689,12 +724,15 @@ def lab_cost(torch, key, cfg, device):
     """(bytes, operations, peak operations/s) of one call of a lab kernel
     on the sweep's inputs at ``cfg`` (made again from the module's seed),
     and one PyTorch call of the same function with its name (None for
-    flatwide: no PyTorch call reads K/V through a block table)."""
+    flatwide and the full-pool kernel: no PyTorch call reads K/V through
+    a block table). The full-pool kernel's bound is the grid kernel's on
+    the plane it reads, plus the layer index."""
     from llmc_paged_tpu_torch.ops import int8 as Q
     from llmc_paged_tpu_torch.ops.dev import bench_int8_matmul
     from llmc_paged_tpu_torch.ops.dev import bench_layernorm as LN
     from llmc_paged_tpu_torch.ops.dev import bench_softmax as SM
     from llmc_paged_tpu_torch.ops.dev import lab_flatwide as FW
+    from llmc_paged_tpu_torch.ops.dev import lab_full_pool as FP
     from llmc_paged_tpu_torch.ops.layers import LN_EPS
     if key.startswith("int8_matmul"):
         B, OC, IC = cfg
@@ -724,6 +762,13 @@ def lab_cost(torch, key, cfg, device):
         (x,) = SM.make_args(B, V, device)
         return (2 * B * V * 4, 5 * B * V, PEAK_F32_OPS_S,
                 lambda: torch.softmax(x, dim=-1), "torch.softmax")
+    if key.endswith("_full"):
+        q, k, v, scales, layer, _, tables, lengths, starts = FP.make_args(
+            *cfg, device=device)
+        plane = tuple(t[layer] for t in (k, v) + tuple(scales or ()))
+        nbytes, ops = parts_cost(q, plane, tables, lengths, starts,
+                                 grid=True)
+        return nbytes + 4, ops, PEAK_F32_OPS_S, None, None
     q, k, v, scales, tables, lengths, starts = FW.make_args(*cfg,
                                                             device=device)
     nbytes, ops = parts_cost(q, (k, v) + tuple(scales or ()), tables,
@@ -735,7 +780,8 @@ def phase_lab_times(torch, records, device):
     """Each lab kernel's time and its plain version's at the logged
     configurations, from the sweeps' records, beside the bound for those
     inputs and one PyTorch call of the same function (timed here);
-    flatwide beside the parts kernel the sweep ran on the same tensors.
+    flatwide beside the parts kernel and the full-pool kernel beside the
+    grid kernel on the plane, which the sweeps ran on the same tensors.
     Returns per-wrapper records for the JSON line."""
     out = {}
     for key, k in LAB_KERNELS.items():
@@ -760,15 +806,75 @@ def phase_lab_times(torch, records, device):
                      bound_by="bytes" if t_bytes >= t_ops else "operations")
             lib = ("none" if library is None
                    else f"{t['library_ms'] * 1e3:.2f} us ({lib_name})")
-            beside = ("" if k.module != "lab_flatwide" else
-                      f", the parts kernel on the same tensors "
-                      f"{ms_of('v1_cuda_online_parts', cfg) * 1e3:.2f} us")
+            other = {"lab_flatwide": ("the parts kernel",
+                                      "v1_cuda_online_parts"),
+                     "lab_full_pool": ("the grid kernel on the plane",
+                                       "v1_cuda_grid_on_plane")}.get(k.module)
+            beside = ("" if other is None else
+                      f", {other[0]} on the same tensors "
+                      f"{ms_of(other[1], cfg) * 1e3:.2f} us")
             log(f"  {key} {cfg}: kernel {t['ms'] * 1e3:.2f} us, plain "
                 f"{t['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
                 f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
                 f"({nbytes} B, {ops} ops){beside}")
             out[key] = t
     return out
+
+
+# ---- phase 12: the decode-step probe ------------------------------------------
+
+PROBE_RUNS = (["--model", "124m"],
+              ["--model", "1558m", "--skip",
+               "matmul,prefill,attention,chunk,unrolled"])
+
+
+def probe_summary(r) -> str:
+    """One record of the probe, short: its time a unit (a call or a
+    step) and, for a step, host / device / busy and the idle share."""
+    if r["suite"] == "gemv":
+        return (f"{r['name'].split(' ')[0]} {r['config'][3]}/"
+                f"{r['config'][4]} {r['ms'] * 1e3:.1f} us")
+    if r["suite"] in ("kernel", "kserve"):
+        return f"{r['name']} {r['ms'] * 1e3:.1f} us"
+    dev = ("-" if r["device_ms"] is None else
+           f"{r['device_ms']:.3f}{'' if r['covered'] else ' (not covered)'}")
+    busy = "-" if r["busy_ms"] is None else f"{r['busy_ms']:.3f}"
+    idle = ("-" if r["idle_share"] is None
+            else f"{r['idle_share']:.3f}")
+    return f"{r['name']} {r['host_ms']:.3f}/{dev}/{busy} idle {idle}"
+
+
+def phase_probe(pa) -> list:
+    """probe_decode.main in process: all suites at 124M, the GEMV and
+    kernel suites at 1558M. Logs one line a suite; checks that the
+    paged-attention launches equal the calls the probe's records count.
+    Returns the records."""
+    from llmc_paged_tpu_torch.ops.dev import probe_decode
+    reset_counts(pa)
+    records = []
+    with open(os.path.join(HERE, "build", "chip_smoke_probe.txt"), "w") as f:
+        for argv in PROBE_RUNS:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                recs = probe_decode.main(argv)
+            f.write(f"== probe_decode {' '.join(argv)}\n{buf.getvalue()}")
+            for suite in dict.fromkeys(r["suite"] for r in recs):
+                rs = [r for r in recs if r["suite"] == suite]
+                unit = ("ms a step host/device/busy"
+                        if suite not in ("gemv", "kernel", "kserve")
+                        else "a call")
+                log(f"  {argv[1]} {suite} ({rs[0]['suite_s']:.1f} s; "
+                    f"{unit}): " + "; ".join(map(probe_summary, rs)))
+            records += recs
+    want = collections.Counter()
+    for r in records:
+        want.update(r["kernels"])
+    got = {k: v for k, v in pa.LAUNCHES.items() if v}
+    check(got == dict(want) and sum(want.values()) > 0,
+          f"probe launches {got} != the calls its records count "
+          f"{dict(want)}")
+    log(f"  probe launches {got} (= the calls the probe made)")
+    return records
 
 
 def main() -> int:
@@ -784,6 +890,7 @@ def main() -> int:
     from llmc_paged_tpu_torch.ops import paged_attention as pa
 
     device = "cuda"
+    t_start = time.monotonic()
     # 1. device
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -803,12 +910,12 @@ def main() -> int:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in _build.BUILD_SECONDS.items())})")
 
     # 3. kernel vs plain
-    log(f"phase 3: kernels vs plain versions (tol {TOL_ABS:g} + "
-        f"{TOL_REL:g}*|ref|; acc: + {TOL_REL:g}*(|acc|+l))")
+    phase(f"phase 3: kernels vs plain versions (tol {TOL_ABS:g} + "
+          f"{TOL_REL:g}*|ref|; acc: + {TOL_REL:g}*(|acc|+l))")
     records = phase_kernels(torch, pa, device)
 
     # 4. headline engine (the main path)
-    log("phase 4: GPT-2 124M, int8 weights + int8 KV, bf16 activations")
+    phase("phase 4: GPT-2 124M, int8 weights + int8 KV, bf16 activations")
     cfg = GPT2Config.gpt2_124m()
     g = torch.Generator(device=device)
     g.manual_seed(0)
@@ -842,7 +949,7 @@ def main() -> int:
         f"{st['t_materialize_s']} s)")
 
     # 5. fp32 engine: kernel route vs plain route
-    log("phase 5: fp32 engine, kernel route vs plain route")
+    phase("phase 5: fp32 engine, kernel route vs plain route")
     reset_counts(pa)
     eng_k, done_k = serve(torch, params32, cfg, prompts=prompts, new=32,
                           kv_dtype="float32", param_dtype="float32",
@@ -892,7 +999,7 @@ def main() -> int:
           "fp32: decode_step_paged logits disagree")
 
     # 6. loaded queue
-    log("phase 6: loaded queue, 16 requests through 8 slots")
+    phase("phase 6: loaded queue, 16 requests through 8 slots")
     lens = [30, 200, 60, 150, 100, 250, 20, 180, 90, 220, 40, 130, 70, 240,
             10, 160]
     news = [100, 60, 120, 80, 40, 90, 110, 50, 70, 30, 120, 100, 60, 80,
@@ -910,8 +1017,8 @@ def main() -> int:
         f"{eng_q.stats['decode_tok_per_s']:.1f}")
 
     # 7. speculative serving (the main path of the multi-query kernel)
-    log("phase 7: speculative decode, spec_k=4, 3-gram prompt lookup, "
-        "headline configuration")
+    phase("phase 7: speculative decode, spec_k=4, 3-gram prompt lookup, "
+          "headline configuration")
     segs = prompts_for(torch, 8, [32] * 8, cfg.vocab_size, 3, device)
     sprompts = [seg * 4 for seg in segs]
     spec = dict(kv_dtype="int8", param_dtype="int8", num_pages=28, spec_k=4)
@@ -995,8 +1102,8 @@ def main() -> int:
         f"{eng_sf.stats['spec_tok_per_step']})")
 
     # 8. prefix caching
-    log("phase 8: prefix caching, 256-token shared system prompt + 32-token "
-        "suffixes, pages_per_seq 4, 40 pages")
+    phase("phase 8: prefix caching, 256-token shared system prompt + 32-token "
+          "suffixes, pages_per_seq 4, 40 pages")
     sys_prompt = prompts_for(torch, 1, [256], cfg.vocab_size, 4, device)[0]
     tails = prompts_for(torch, 8, [32] * 8, cfg.vocab_size, 5, device)
     pprompts = [sys_prompt + t for t in tails]
@@ -1087,16 +1194,23 @@ def main() -> int:
     del pool_b
 
     # 9-10. the CLI and its modes
-    log("phase 9: the CLI at the reference defaults (ps 32, fp32, seed "
-        "1337), 8 rows x 64-token prompts, 64 new tokens, top-k 40")
+    phase("phase 9: the CLI at the reference defaults (ps 32, fp32, seed "
+          "1337), 8 rows x 64-token prompts, 64 new tokens, top-k 40")
     launches_cli = phase_cli(torch, pa, params32, cfg, device)
 
     # 11. the kernel lab (its main path: the sweeps), then its kernels
     # timed
-    log(f"phase 11: the kernel lab, {LAB_ITERS} timed calls a run")
+    phase(f"phase 11: the kernel lab, {LAB_ITERS} timed calls a run")
     lab_launches, lab_records = phase_lab_sweeps()
     log(f"  launches {lab_launches} (= the harness's calls)")
     lab = phase_lab_times(torch, lab_records, device)
+
+    # 12. the decode-step probe
+    phase("phase 12: the decode-step probe (ops/dev/probe_decode.py), every "
+          "suite at 124M, the GEMV and kernel suites at 1558M")
+    phase_probe(pa)
+    phase("done")
+    log(f"  {time.monotonic() - t_start:.1f} s in all")
 
     kernels = []
     for wrapper, launches, source, replaces in (

@@ -44,6 +44,18 @@ class GPT2Config:
         return GPT2Config(1024, 50257, 12, 12, 768)
 
     @staticmethod
+    def gpt2_350m() -> "GPT2Config":
+        return GPT2Config(1024, 50257, 24, 16, 1024)
+
+    @staticmethod
+    def gpt2_774m() -> "GPT2Config":
+        return GPT2Config(1024, 50257, 36, 20, 1280)
+
+    @staticmethod
+    def gpt2_1558m() -> "GPT2Config":
+        return GPT2Config(1024, 50257, 48, 25, 1600)
+
+    @staticmethod
     def tiny(max_seq_len: int = 64, vocab_size: int = 256, num_layers: int = 2,
              num_heads: int = 4, channels: int = 32) -> "GPT2Config":
         """Small config for tests."""

@@ -30,31 +30,45 @@ SLEEP_CYCLES = 50_000_000
 
 
 def _outputs(out) -> List[torch.Tensor]:
-    """A version's result as a list of f32 tensors (attention parts are
+    """A version's result as a list of tensors (attention parts are
     tuples)."""
     outs = out if isinstance(out, (tuple, list)) else (out,)
-    return [torch.as_tensor(o).float() for o in outs]
+    return [torch.as_tensor(o) for o in outs]
+
+
+def _close(g, w, rtol, atol, bf16_ulp) -> bool:
+    """|g - w| <= atol + rtol·|w| elementwise, in f32; with ``bf16_ulp`` a
+    bf16 output is held to one bf16 ulp of |w| plus 1e-6 instead (both
+    sides round an f32 result once; f32 sums in another order move an
+    output near 0 by more than its ulp)."""
+    gf, wf = g.float(), w.float()
+    if bf16_ulp and g.dtype == torch.bfloat16:
+        tol = 1e-6 + torch.exp2(torch.floor(torch.log2(
+            wf.abs().clamp_min(2.0 ** -126))) - 7)
+    else:
+        tol = atol + rtol * wf.abs()
+    return bool(((gf - wf).abs() <= tol).all())
 
 
 def validate_result(fn: Callable, ref: Callable, args: tuple,
                     rtol: float = 1e-4, atol: float = 1e-4,
-                    name: str = "kernel", atol_of_max: bool = False
-                    ) -> float:
+                    name: str = "kernel", atol_of_max: bool = False,
+                    bf16_ulp: bool = False) -> float:
     """Compare fn(*args) with ref(*args) elementwise (|a - b| <= atol +
     rtol·|b|; with ``atol_of_max`` atol is a fraction of max |b|, for f32
-    sums whose rounding grows with the outputs); print the [validate]
-    line, raise on a mismatch, return max |Δ|."""
+    sums whose rounding grows with the outputs; with ``bf16_ulp`` a bf16
+    output within one bf16 ulp plus 1e-6); print the [validate] line,
+    raise on a mismatch, return max |Δ|."""
     got, want = _outputs(fn(*args)), _outputs(ref(*args))
     if [g.shape for g in got] != [w.shape for w in want]:
         raise AssertionError(f"{name} shapes {[tuple(g.shape) for g in got]}"
                              f" != {[tuple(w.shape) for w in want]}")
-    err = max((float((g - w).abs().max()) for g, w in zip(got, want)
-               if g.numel()), default=0.0)
+    err = max((float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want) if g.numel()), default=0.0)
     if atol_of_max:
-        atol *= max((float(w.abs().max()) for w in want if w.numel()),
-                    default=0.0)
-    ok = all(torch.allclose(g, w, rtol=rtol, atol=atol)
-             for g, w in zip(got, want))
+        atol *= max((float(w.float().abs().max()) for w in want
+                     if w.numel()), default=0.0)
+    ok = all(_close(g, w, rtol, atol, bf16_ulp) for g, w in zip(got, want))
     print(f"[validate] {name}: max|Δ|={err:.3e} {'OK' if ok else 'NOT OK'}")
     if not ok:
         raise AssertionError(f"{name} mismatch: {err}")
@@ -116,7 +130,8 @@ def sweep(versions: Dict[str, Callable], make_args: Callable[..., tuple],
     ms / GFLOP/s / GB/s table. A version given as ``(fn, options)``
     takes from its options: ``validate=False`` (timed only), ``ref``
     (the name of another version to validate against) and ``rtol``,
-    ``atol``, ``atol_of_max`` (validate_result's tolerance). Returns one
+    ``atol``, ``atol_of_max``, ``bf16_ulp`` (validate_result's
+    tolerance). Returns one
     record a (config, version): name, config, ms, max_abs_err (None when
     not validated), validated, and calls (how often the harness called
     the version)."""
@@ -136,8 +151,8 @@ def sweep(versions: Dict[str, Callable], make_args: Callable[..., tuple],
             if isinstance(fn, tuple):
                 fn, opts = fn
             validate = name != ref_name and opts.get("validate", True)
-            tol = {k: opts[k] for k in ("rtol", "atol", "atol_of_max")
-                   if k in opts}
+            tol = {k: opts[k] for k in ("rtol", "atol", "atol_of_max",
+                                         "bf16_ulp") if k in opts}
             calls = [0]
 
             def counted(*a, _fn=fn):

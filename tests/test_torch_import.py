@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,6 +50,8 @@ def test_no_source_names_jax_or_the_jax_package():
         files += [os.path.join(d, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
     assert len(files) > 10
+    assert {os.path.join(PKG, "ops", "dev", n) for n in
+            ("lab_full_pool.py", "probe_decode.py")} <= set(files)
     hits = []
     for f in files:
         with open(f) as fh:
@@ -73,6 +76,16 @@ def test_entry_points_default_to_the_card():
         InferenceEngine(params, cfg, EngineConfig(greedy=True))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    # the kernel lab's stacked-pool sweep and helper, and the probe
+    from llmc_paged_tpu_torch.ops.dev import lab_full_pool, probe_decode
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lab_full_pool.main(["--iters", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lab_full_pool.pool_from_numpy(*[np.zeros((1, 1, 1, 1, 1))] * 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe_decode.main(["--skip", ",".join(probe_decode.SUITES)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe_decode.gemv_suite(8, cfg)
 
 
 def test_options_outside_the_slice_raise():

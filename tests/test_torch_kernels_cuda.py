@@ -390,3 +390,155 @@ def test_lab_kernels_reject_what_they_do_not_take(cuda):  # noqa: F811
     with pytest.raises(ValueError, match="shared memory"):
         FW.flatwide_parts(q[:1], big, big, tables[:1, :2], lengths[:1],
                           starts[:1])
+
+
+# ---- the stacked-pool ("full-pool") lab kernel -------------------------------
+
+def _full_case(ps, seed, L=3, B=6, pps=4):
+    """q and stacked (L, P, NH, HS, ps) pools (float, and int8 with
+    scales); ragged lengths with a zero-length row, a start >= length row
+    (5/7), windowed rows; every table entry outside a row's live range
+    [start//ps, (len-1)//ps] is the sentinel P."""
+    rng = np.random.default_rng(seed)
+    P = B * pps + 3
+    q = rng.standard_normal((B, NH, HS)).astype(np.float32)
+    fpool = [rng.standard_normal((L, P, NH, HS, ps)).astype(np.float32)
+             for _ in range(2)]
+    qpool = [rng.integers(-127, 128, (L, P, NH, HS, ps)).astype(np.int8)
+             for _ in range(2)]
+    qpool += [rng.uniform(1e-3, 2e-2, (L, P, NH, ps)).astype(np.float32)
+              for _ in range(2)]
+    tables = rng.permutation(P)[: B * pps].reshape(B, pps).astype(np.int32)
+    cap = ps * pps
+    lengths = np.array([cap, 0, 5, ps + 3, cap - 3, 1], np.int32)
+    starts = np.array([ps + 1, 0, 7, 0, cap - 2 * ps + 1, 0], np.int32)
+    col = np.arange(pps)[None, :]
+    live = ((col >= (starts // ps)[:, None])
+            & (col <= ((lengths - 1) // ps)[:, None]) & (lengths > 0)[:, None])
+    tables[~live] = P
+    return q, fpool, qpool, tables, lengths, starts
+
+
+def _full_close(got, ref):
+    """f32 outputs within 1e-5 abs + 1e-5 rel (f32 sums in another
+    order); bf16 within one bf16 ulp plus 1e-6 (both round an f32 result
+    once)."""
+    if got.dtype == torch.bfloat16:
+        return _within_bf16_ulp(got, ref)
+    return bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("ps", [8, 32, 128])
+def test_full_pool_kernel_matches_plain_on_the_card(cuda, ps, kv, qd):  # noqa: F811
+    """The full-pool kernel vs its plain version on every plane, the
+    layer as a (1,) int32 tensor on the card and as a host int. The
+    zero-length and start >= length rows are exact zeros."""
+    from llmc_paged_tpu_torch.ops.dev import lab_full_pool as FP
+    q, fpool, qpool, tables, lengths, starts = _full_case(ps, seed=ps + 1)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    tq = torch.from_numpy(q).to(cuda).to(dt[qd])
+    idx = [torch.from_numpy(a).to(cuda) for a in (tables, lengths, starts)]
+    if kv == "int8":
+        pool = [torch.from_numpy(a).to(cuda) for a in qpool]
+        fn, ref_fn = (FP.paged_decode_attention_quant_full,
+                      FP.paged_decode_attention_quant_full_ref)
+        name = "paged_decode_attention_quant_full"
+    else:
+        pool = [torch.from_numpy(a).to(cuda).to(dt[kv]) for a in fpool]
+        fn, ref_fn = (FP.paged_decode_attention_full,
+                      FP.paged_decode_attention_full_ref)
+        name = "paged_decode_attention_full"
+    for layer in range(3):
+        ref = ref_fn(tq, *pool, layer, *idx)
+        for lay in (torch.tensor([layer], dtype=torch.int32, device=cuda),
+                    layer):
+            before = FP.LAUNCHES[name]
+            got = fn(tq, *pool, lay, *idx)
+            torch.cuda.synchronize()
+            assert FP.LAUNCHES[name] == before + 1
+            assert got.dtype == tq.dtype and got.shape == tq.shape
+            assert _full_close(got, ref), (layer, float(
+                (got.float() - ref.float()).abs().max()))
+            assert bool((got[1] == 0).all()) and bool((got[2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "float32"])
+def test_full_pool_kernel_offsets_past_32_bits(cuda, kv):  # noqa: F811
+    """Plane offsets past 2^31: an int8 pool at the 1.5B depth (L=48,
+    P=224, NH=25, HS=64, ps=128: 2.2e9 elements a pool) read at layer
+    47, and an f32 pool of 2.4e9 bytes read at its last layer. Only that
+    plane holds data (the others are zero), so a wrong plane offset
+    disagrees with the plain version."""
+    from llmc_paged_tpu_torch.ops.dev import lab_full_pool as FP
+    L, P, NH_, ps = (48, 224, 25, 128) if kv == "int8" else (24, 256, 12, 128)
+    B, pps = 8, 3
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dt = torch.int8 if kv == "int8" else torch.float32
+    k, v = (torch.zeros((L, P, NH_, HS, ps), dtype=dt, device=cuda)
+            for _ in range(2))
+    assert k.numel() * k.element_size() > 2 ** 31
+    for t in (k, v):
+        if kv == "int8":
+            t[L - 1] = torch.randint(-127, 128, t.shape[1:], generator=g,
+                                     device=cuda, dtype=torch.int8)
+        else:
+            t[L - 1] = torch.randn(t.shape[1:], generator=g, device=cuda)
+    tables = torch.randperm(P, generator=g, device=cuda)[: B * pps].reshape(
+        B, pps).to(torch.int32)
+    lengths = torch.tensor([384, 1, 129, 256, 300, 77, 383, 200],
+                           dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 0, 100, 0, 256, 0, 5, 0], dtype=torch.int32,
+                          device=cuda)
+    layer = torch.tensor([L - 1], dtype=torch.int32, device=cuda)
+    if kv == "int8":
+        ks, vs = (torch.zeros((L, P, NH_, ps), device=cuda) for _ in range(2))
+        ks[L - 1] = 1e-3 + 1e-2 * torch.rand(ks.shape[1:], generator=g,
+                                             device=cuda)
+        vs[L - 1] = 1e-3 + 1e-2 * torch.rand(vs.shape[1:], generator=g,
+                                             device=cuda)
+        q = torch.randn(B, NH_, HS, generator=g, device=cuda).bfloat16()
+        got = FP.paged_decode_attention_quant_full(q, k, v, ks, vs, layer,
+                                                   tables, lengths, starts)
+        ref = FP.paged_decode_attention_quant_full_ref(q, k, v, ks, vs, L - 1,
+                                                       tables, lengths, starts)
+    else:
+        q = torch.randn(B, NH_, HS, generator=g, device=cuda)
+        got = FP.paged_decode_attention_full(q, k, v, layer, tables, lengths,
+                                             starts)
+        ref = FP.paged_decode_attention_full_ref(q, k, v, L - 1, tables,
+                                                 lengths, starts)
+    torch.cuda.synchronize()
+    assert float(ref.float().abs().max()) > 0
+    assert _full_close(got, ref), float((got.float() - ref.float()).abs()
+                                        .max())
+    del k, v
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_full_pool_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
+    from llmc_paged_tpu_torch.ops.dev import lab_full_pool as FP
+    q, fpool, _, tables, lengths, starts = _full_case(8, seed=0)
+    q, k, v, tables, lengths, starts = (
+        torch.from_numpy(a).to(cuda)
+        for a in (q, *fpool, tables, lengths, starts))
+    layer = torch.tensor([1], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        FP.paged_decode_attention_full(
+            q[..., :48].contiguous(), k[:, :, :, :48].contiguous(),
+            v[:, :, :, :48].contiguous(), layer, tables, lengths, starts)
+    with pytest.raises(TypeError):
+        FP.paged_decode_attention_full(q, k, v, layer.long(), tables,
+                                       lengths, starts)
+    with pytest.raises(ValueError, match="is on"):
+        FP.paged_decode_attention_full(q, k, v, layer.cpu(), tables,
+                                       lengths, starts)
+    with pytest.raises(ValueError, match="outside"):
+        FP.paged_decode_attention_full(q, k, v, 3, tables, lengths, starts)
+    with pytest.raises(ValueError, match="L, P, NH"):
+        FP.paged_decode_attention_full(q, k[0], v[0], layer, tables, lengths,
+                                       starts)
