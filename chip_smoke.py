@@ -13,12 +13,14 @@ Phases (any failed check raises, and the script exits non-zero):
      f32, bf16 and int8 pools at the GPT-2 124M head shapes (q f32 over
      f32 pools, bf16 over bf16 and int8 pools as the headline sends it,
      and f32 over int8 pools), with ragged
-     and zero lengths, window starts, ps=32 and B*pps > 4096; the
-     multi-query kernel also at the spec-verify shape (KQ=4), KQ=1 and
-     suffix shapes (KQ=32, and KQ=96 above the TPU kernel's 64); the grid
+     and zero lengths, window starts, ps=32, B*pps > 4096 and a long
+     case (8 live pages of 128, lengths 900-1024); the multi-query kernel
+     also at the spec-verify shape (KQ=4), KQ=1 and suffix shapes (KQ=32,
+     and KQ=96 above the TPU kernel's 64); the grid
      kernel at the CLI's shape (B=8, ps=32, pps=32, P=128, lengths
      65-128) and at ps 8, 16 and 96 with zero, start >= length and
-     windowed rows; times from CUDA events beside the bound;
+     windowed rows; times from CUDA events beside the bound, and the
+     parts kernels' beside their times before the redesign;
   4. engine, headline config: GPT-2 124M (seeded random weights) served
      by InferenceEngine.run with int8 weights, int8 KV, bf16 activations,
      a bf16 prefill copy, page_size 128 and greedy 16-token chunks;
@@ -300,6 +302,10 @@ SQ_CASES = [
     ("B*pps>4096", dict(B=8, ps=128, pps=520, P=64, repeat_pages=True,
                         lengths=[66560, 1, 0, 40000, 128, 129, 5000, 66559],
                         starts=[0, 0, 0, 39000, 0, 0, 4000, 60000])),
+    # 8 live pages a row, as the probe's long-context serving call
+    ("long", dict(B=8, ps=128, pps=8, P=72,
+                  lengths=[900, 918, 936, 954, 972, 990, 1008, 1024],
+                  starts=[0] * 8)),
 ]
 MQ_CASES = [
     # the multi-query kernel: spec verify (KQ = spec_k = 4), KQ=1, the
@@ -316,6 +322,7 @@ MQ_CASES = [
                       lengths=[256, 0, 128, 384, 1, 129, 300, 512],
                       starts=[0, 0, 0, 100, 0, 0, 0, 0], KQ=96)),
     ("B*pps>4096", dict(SQ_CASES[4][1], KQ=4)),
+    ("long", dict(SQ_CASES[5][1], KQ=4)),
 ]
 GRID_CASES = [
     # the normalized grid kernel: the CLI's decode shape (8 rows of a
@@ -343,8 +350,17 @@ POOLS = (("f32", "f32"), ("bf16", "bf16"), ("int8", "bf16"),
 # (case, pool) pairs timed for the record, at the main path's q dtype:
 # the JSON line takes the first case of each kernel; the suffix times go
 # to the log
-TIMED_CASES = {"headline", "spec", "suffix32"}
+TIMED_CASES = {"headline", "spec", "suffix32", "long"}
 TIMED_POOLS = {("f32", "f32"), ("int8", "bf16")}
+# the parts kernels' times before their redesign for Hopper (one block
+# walking a row's pages in turn), µs a call, by (kernel, pool, case): this
+# script's phase 3 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6
+# keeps them beside the new times); the "long" case is newer than them
+BEFORE_US = {("sq", "f32", "headline"): 20.85,
+              ("sq", "int8", "headline"): 22.10,
+              ("mq", "f32", "spec"): 24.92, ("mq", "int8", "spec"): 33.57,
+              ("mq", "f32", "suffix32"): 63.21,
+              ("mq", "int8", "suffix32"): 72.03}
 
 
 def phase_kernels(torch, pa, device):
@@ -380,9 +396,12 @@ def phase_kernels(torch, pa, device):
                 t = time_case(torch, pa, q, pool, tables, lengths, starts)
                 if "ms" not in rec:
                     rec.update(t, shape=name)
+                was = BEFORE_US.get((kind, kv, name))
                 log(f"  {kind} {kvq} {name} time: kernel "
-                    f"{t['ms'] * 1e3:.2f} us, plain "
-                    f"{t['plain_ms'] * 1e3:.2f} us, bound "
+                    f"{t['ms'] * 1e3:.2f} us (before the redesign: "
+                    + (f"{was:.2f} us, x{was / (t['ms'] * 1e3):.2f})"
+                       if was else "not measured)")
+                    + f", plain {t['plain_ms'] * 1e3:.2f} us, bound "
                     f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
                     f"({t['bytes']} B, {t['ops']} f32 ops)")
             del q, pool, got, ref

@@ -48,10 +48,12 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> str:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source and flags."""
+    source, the ``csrc/*.cuh`` headers and the flags."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fn in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

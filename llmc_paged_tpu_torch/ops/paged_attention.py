@@ -47,16 +47,13 @@ LAUNCHES = {"paged_decode_attention_parts": 0,
             "paged_decode_attention_quant_grid": 0}
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # the .cu enum
-_MAX_SMEM = 48 * 1024
-# the multi-query kernel opts in to more dynamic shared memory (Hopper:
-# 227 KB a block)
-_MAX_SMEM_MQ = 232448
-# queries a multi-query block scores against one staged page (the .cu's
-# QT): one tile covers any spec_k up to 16
-MQ_TILE = 16
-# head sizes the grid kernel is instantiated for (its register tile):
-# every GPT-2 size has head_dim 64
+# head sizes the parts and grid kernels are instantiated for (their
+# register tiles): every GPT-2 size has head_dim 64
+PARTS_HEAD_DIMS = (64,)
 GRID_HEAD_DIMS = (64,)
+# tokens a parts-kernel lane loads as one vector: the page size and the
+# pools' alignment must be multiples of it
+PARTS_VEC = 4
 
 
 # ---- plain PyTorch versions -------------------------------------------------
@@ -177,7 +174,7 @@ def _kernel_fn(kind: str):
     (multi-query parts) or "grid" (normalized)."""
     if kind == "mq":
         lib, fn, n_ptr, n_int = ("paged_attention_mq", "flash_decode_parts_mq",
-                                 11, 7)   # B, KQ, NH, HS, ps, pps, qtile
+                                 11, 6)   # B, KQ, NH, HS, ps, pps
     elif kind == "grid":
         lib, fn, n_ptr, n_int = ("paged_attention_grid", "paged_decode_grid",
                                  9, 5)    # out only; B, NH, HS, ps, pps
@@ -187,15 +184,6 @@ def _kernel_fn(kind: str):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return entry(lib, fn, [i32, i32] + [ptr] * n_ptr + [i32] * n_int
                  + [ctypes.c_float, ptr])
-
-
-def _mq_smem_bytes(qtile: int, HS: int, ps: int) -> int:
-    """Dynamic shared memory of one multi-query block (the .cu's layout):
-    q and acc (qtile*HS each), the staged K page (HS*ps) and V page
-    (HS*(ps+1), padded against bank conflicts), scores (qtile*ps), the
-    page's scales (2*ps) and per-query m, l, alpha (3*qtile), all f32."""
-    return 4 * (2 * qtile * HS + HS * ps + HS * (ps + 1) + qtile * ps
-                + 2 * ps + 3 * qtile)
 
 
 def _check_operands(q, k_pages, v_pages, scales, block_tables, lengths,
@@ -250,13 +238,16 @@ def _launch(wrapper, mq, q, k_pages, v_pages, scales, block_tables,
     take."""
     B, KQ, NH, HS, ps, pps = _check_operands(
         q, k_pages, v_pages, scales, block_tables, lengths, starts, mq)
-    qtile = max(1, min(KQ, MQ_TILE))
-    if mq and _mq_smem_bytes(qtile, HS, ps) > _MAX_SMEM_MQ:
-        raise ValueError(f"page_size {ps} / head_dim {HS} exceed the "
-                         "multi-query kernel's shared memory")
-    if not mq and 4 * (2 * HS + ps + 4) > _MAX_SMEM:
-        raise ValueError(f"page_size {ps} / head_dim {HS} exceed the "
-                         "kernel's shared memory")
+    if HS not in PARTS_HEAD_DIMS:
+        raise ValueError(f"head_dim {HS} is not one of the parts kernels' "
+                         f"{PARTS_HEAD_DIMS}")
+    if ps % PARTS_VEC != 0:
+        raise ValueError(f"page_size {ps} is not a multiple of the parts "
+                         f"kernels' vector of {PARTS_VEC} tokens")
+    align = PARTS_VEC * k_pages.element_size()
+    if k_pages.data_ptr() % align or v_pages.data_ptr() % align:
+        raise ValueError(f"k_pages/v_pages must be {align}-byte aligned "
+                         "(the parts kernels' vector loads)")
     lead = (B, KQ) if mq else (B,)
     dev = q.device
     acc = torch.empty((*lead, NH, HS), dtype=torch.float32, device=dev)
@@ -264,7 +255,7 @@ def _launch(wrapper, mq, q, k_pages, v_pages, scales, block_tables,
     l = torch.empty((*lead, NH), dtype=torch.float32, device=dev)
     if B == 0 or NH == 0 or KQ == 0:
         return acc, m, l
-    dims = (B, KQ, NH, HS, ps, pps, qtile) if mq else (B, NH, HS, ps, pps)
+    dims = (B, KQ, NH, HS, ps, pps) if mq else (B, NH, HS, ps, pps)
     _call(wrapper, "mq" if mq else "sq", q, k_pages, v_pages, scales,
           block_tables, lengths, starts, (acc, m, l), dims)
     return acc, m, l
@@ -334,7 +325,7 @@ def paged_decode_attention_parts_mq(q, k_pages, v_pages, block_tables,
     (B, KQ, NH, HS), KQ query tokens per row that all attend the same
     committed range [starts, lengths) (no causal mask inside the pool),
     returning UNNORMALIZED parts (acc (B,KQ,NH,HS) f32, m/l (B,KQ,NH)
-    f32). On the card one page walk serves a tile of up to MQ_TILE
+    f32). On the card one walk of the live range serves a tile of 4
     queries; any KQ is taken."""
     if starts is None:
         starts = torch.zeros_like(lengths)

@@ -17,9 +17,12 @@ from test_torch_common import cuda  # noqa: F401  (fixture)
 NH, HS = 2, 64
 
 
-def _case(ps, quant, seed=0, B=5, pps=4):
+def _case(ps, quant, seed=0, B=6, pps=4):
     """Ragged lengths with a zero-length row and a page-boundary length;
-    window starts that mask whole pages and one fully masked row."""
+    window starts that mask whole pages, or start and end inside a
+    32-token chunk; one row with start > length; one row shorter than a
+    chunk. Row 0 holds more 32-token chunks than a block has warps from
+    ps 128 up."""
     rng = np.random.default_rng(seed)
     P = B * pps + 3
     q = rng.standard_normal((B, NH, HS)).astype(np.float32)
@@ -34,41 +37,76 @@ def _case(ps, quant, seed=0, B=5, pps=4):
                      for _ in range(2))
     tables = rng.permutation(P)[: B * pps].reshape(B, pps).astype(np.int32)
     cap = ps * pps
-    lengths = np.array([cap, 0, ps, 1 + ps // 2, cap - 3], np.int32)
-    starts = np.array([ps + 1, 0, 0, lengths[3] + 1, cap - 2 * ps + 1],
-                      np.int32)
+    lengths = np.array([cap, 0, ps, 1 + ps // 2, cap - 3, 21][:B], np.int32)
+    starts = np.array([ps + 1, 0, 0, 0, cap - 2 * ps + 1, 3][:B], np.int32)
+    starts[3] = lengths[3] + 1                    # start > length: masked
     return q, pool, tables, lengths, starts
+
+
+PAGE_SIZES = [8, 16, 32, 96, 128, 256]   # every page size the engine uses
+
+
+def _parts_call(cuda, kv, case, mq):
+    """Run a parts kernel on ``case`` (numpy) on the card through its
+    public wrapper (counted in LAUNCHES). Returns the outputs and the
+    plain version's on the same tensors."""
+    quant = kv.startswith("int8")
+    q, pool, *idx = case
+    a = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+         for x in (q, *pool, *idx)]
+    if kv in ("int8-qbf16", "bfloat16-q"):
+        a[0] = a[0].to(torch.bfloat16)
+    if kv.startswith("bfloat16"):
+        a[1], a[2] = a[1].to(torch.bfloat16), a[2].to(torch.bfloat16)
+    name = ("paged_decode_attention" + ("_quant" if quant else "")
+            + "_parts" + ("_mq" if mq else ""))
+    before = T.LAUNCHES[name]
+    got = getattr(T, name)(*a)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[name] == before + 1
+    return got, getattr(T, name + "_ref")(*a)
+
+
+def _check_parts(got, ref, masked_rows):
+    """Tolerance 1e-4 abs + 1e-4 rel (f32 sums in another order); every
+    output finite; a row with no live token gives (0, NEG_INF, 0)."""
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+    acc, m, l = got
+    for b in masked_rows:
+        assert float(acc[b].abs().max()) == 0.0 and float(l[b].max()) == 0
+        assert bool((m[b] == T.NEG_INF).all())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int8-qbf16"])
-@pytest.mark.parametrize("ps", [8, 32, 128])
+@pytest.mark.parametrize("ps", PAGE_SIZES)
 def test_kernel_matches_plain_on_the_card(cuda, kv, ps):  # noqa: F811
     """CUDA kernel vs plain version on the same tensors; bf16 pools are
     compared with the plain version over the same bf16 values (it upcasts
     to f32); "int8-qbf16" is the int8 pool under the bf16 q the headline
-    engine sends. Tolerance 1e-4 abs + 1e-4 rel: f32 sums in another
-    order."""
-    quant = kv.startswith("int8")
-    q, pool, tables, lengths, starts = _case(ps, quant, seed=11)
-    a = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
-         for x in (q, *pool, tables, lengths, starts)]
-    if kv == "int8-qbf16":
-        a[0] = a[0].to(torch.bfloat16)
-    if kv == "bfloat16":
-        a[1], a[2] = a[1].to(torch.bfloat16), a[2].to(torch.bfloat16)
-    fn = T.paged_decode_attention_quant_parts if quant \
-        else T.paged_decode_attention_parts
-    ref_fn = T.paged_decode_attention_quant_parts_ref if quant \
-        else T.paged_decode_attention_parts_ref
-    name = ("paged_decode_attention_quant_parts" if quant
-            else "paged_decode_attention_parts")
-    before = T.LAUNCHES[name]
-    got = fn(*a)
-    torch.cuda.synchronize()
-    assert T.LAUNCHES[name] == before + 1
-    for g, r in zip(got, ref_fn(*a)):
-        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+    engine sends. The zero-length row and the start > length row give
+    zeros and NEG_INF."""
+    case = _case(ps, kv.startswith("int8"), seed=11)
+    got, ref = _parts_call(cuda, kv, case, False)
+    _check_parts(got, ref, masked_rows=(1, 3))
+
+
+def _refusals(fn, q, k, v, tables, lengths, starts):
+    """What both parts kernels refuse: a page size that is not a multiple
+    of the 4-token vector, a head size without an instance, a pool not
+    aligned to the vector."""
+    odd = torch.zeros(k.shape[0], NH, HS, 6, device=k.device)
+    with pytest.raises(ValueError, match="page_size"):
+        fn(q, odd, odd, tables, lengths, starts)
+    with pytest.raises(ValueError, match="head_dim"):
+        fn(q[..., :48].contiguous(), k[:, :, :48].contiguous(),
+           v[:, :, :48].contiguous(), tables, lengths, starts)
+    flat = torch.zeros(k.numel() + 1, device=k.device)
+    shifted = flat[1:].view(k.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fn(q, shifted, shifted, tables, lengths, starts)
 
 
 @pytest.mark.cuda
@@ -86,9 +124,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
     with pytest.raises(ValueError, match="is on"):
         T.paged_decode_attention_parts(q, k, v, tables.cpu(), lengths,
                                        starts)
+    _refusals(T.paged_decode_attention_parts, q, k, v, tables, lengths,
+              starts)
 
 
-def _mq_case(ps, KQ, quant, seed=0, B=5, pps=4):
+def _mq_case(ps, KQ, quant, seed=0, B=6, pps=4):
     """The single-query case's pool, lengths and starts with KQ queries a
     row."""
     q1, pool, tables, lengths, starts = _case(ps, quant, seed, B, pps)
@@ -100,38 +140,25 @@ def _mq_case(ps, KQ, quant, seed=0, B=5, pps=4):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int8-qbf16"])
 @pytest.mark.parametrize("ps,KQ", [(8, 3), (32, 1), (128, 4), (32, 37),
-                                   (128, 96)])
+                                   (128, 96), (16, 5), (96, 16), (256, 17),
+                                   (8, 16), (128, 17)])
 def test_mq_kernel_matches_plain_on_the_card(cuda, kv, ps, KQ):  # noqa: F811
-    """Multi-query kernel vs its plain version: one query tile (KQ <= 16)
-    and several (37, 96 — above the TPU kernel's 64), ragged, zero and
-    windowed rows; "int8-qbf16" is the int8 pool under the bf16 q of the
-    headline's spec verify and suffix prefill. Tolerance 1e-4 abs + 1e-4
-    rel (f32 sums in another order)."""
-    quant = kv.startswith("int8")
-    q, pool, tables, lengths, starts = _mq_case(ps, KQ, quant, seed=5)
-    a = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
-         for x in (q, *pool, tables, lengths, starts)]
-    if kv in ("bfloat16", "int8-qbf16"):
-        a[0] = a[0].to(torch.bfloat16)
-    if kv == "bfloat16":
-        a[1], a[2] = a[1].to(torch.bfloat16), a[2].to(torch.bfloat16)
-    fn = T.paged_decode_attention_quant_parts_mq if quant \
-        else T.paged_decode_attention_parts_mq
-    ref_fn = T.paged_decode_attention_quant_parts_mq_ref if quant \
-        else T.paged_decode_attention_parts_mq_ref
-    name = ("paged_decode_attention_quant_parts_mq" if quant
-            else "paged_decode_attention_parts_mq")
-    before = T.LAUNCHES[name]
-    got = fn(*a)
-    torch.cuda.synchronize()
-    assert T.LAUNCHES[name] == before + 1
-    assert got[0].shape == (q.shape[0], KQ, NH, HS)
-    for g, r in zip(got, ref_fn(*a)):
-        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+    """Multi-query kernel vs its plain version: one query tile (KQ <= 4),
+    a partial last tile (5, 17, 37), the 16/17 edge and KQ 96 (above the
+    TPU kernel's 64), ragged, zero, windowed and start > length rows;
+    bf16 pools and "int8-qbf16" (the int8 pool under the bf16 q of the
+    headline's spec verify and suffix prefill) take bf16 q."""
+    case = _mq_case(ps, KQ, kv.startswith("int8"), seed=5)
+    got, ref = _parts_call(cuda, {"bfloat16": "bfloat16-q"}.get(kv, kv),
+                           case, True)
+    assert got[0].shape == (case[0].shape[0], KQ, NH, HS)
+    _check_parts(got, ref, masked_rows=(1, 3))
 
 
 @pytest.mark.cuda
 def test_mq_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
+    """What the multi-query kernel refuses; a page of 1024 tokens runs
+    (no page is staged in shared memory)."""
     q, pool, tables, lengths, starts = _mq_case(8, 4, False)
     q, k, v, tables, lengths, starts = (
         torch.from_numpy(x).to(cuda)
@@ -142,10 +169,61 @@ def test_mq_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
     with pytest.raises(TypeError):
         T.paged_decode_attention_parts_mq(q, k.half(), v.half(), tables,
                                           lengths, starts)
+    _refusals(T.paged_decode_attention_parts_mq, q, k, v, tables, lengths,
+              starts)
     big = torch.zeros(2, NH, HS, 1024, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        T.paged_decode_attention_parts_mq(q[:1], big, big, tables[:1, :1],
-                                          lengths[:1], starts[:1])
+    one = lambda x: torch.tensor([x], dtype=torch.int32, device=cuda)  # noqa: E731
+    got = T.paged_decode_attention_parts_mq(q[:1], big, big, one(1)[None],
+                                            one(1000), one(0))
+    torch.cuda.synchronize()
+    # ps 1024 runs: zero scores give p = 1 for each of the 1000 tokens
+    assert bool((got[2] == 1000).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "float32"])
+def test_parts_kernels_offsets_past_32_bits(cuda, kv):  # noqa: F811
+    """Page offsets past 2^31: pools of more than 2^31 bytes (int8: 21,900
+    pages of the 124M head shape; f32: 5,500) whose only non-zero pages
+    are the last 12, named by the table; both parts kernels against their
+    plain versions."""
+    NH_, ps, B, pps = 12, 128, 4, 3
+    P = 21900 if kv == "int8" else 5500
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dt = torch.int8 if kv == "int8" else torch.float32
+    k, v = (torch.zeros((P, NH_, HS, ps), dtype=dt, device=cuda)
+            for _ in range(2))
+    assert k.numel() * k.element_size() > 2 ** 31
+    tail = (12, NH_, HS, ps)
+    for t in (k, v):
+        t[P - 12:] = (torch.randint(-127, 128, tail, generator=g, device=cuda,
+                                    dtype=torch.int8) if kv == "int8"
+                      else torch.randn(tail, generator=g, device=cuda))
+    tables = (P - 1 - torch.arange(B * pps, device=cuda)).reshape(
+        B, pps).to(torch.int32)
+    lengths = torch.tensor([384, 300, 129, 5], dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 7, 0, 0], dtype=torch.int32, device=cuda)
+    scales = []
+    if kv == "int8":
+        scales = [torch.zeros((P, NH_, ps), device=cuda) for _ in range(2)]
+        for s in scales:
+            s[P - 12:] = 1e-3 + 1e-2 * torch.rand((12, NH_, ps), generator=g,
+                                                  device=cuda)
+    quant = "_quant" if kv == "int8" else ""
+    for KQ in (None, 4):
+        shape = (B, NH_, HS) if KQ is None else (B, KQ, NH_, HS)
+        q = torch.randn(shape, generator=g, device=cuda)
+        name = f"paged_decode_attention{quant}_parts" + ("_mq" if KQ else "")
+        args = (q, k, v, *scales, tables, lengths, starts)
+        got = getattr(T, name)(*args)
+        torch.cuda.synchronize()
+        ref = getattr(T, name + "_ref")(*args)
+        assert float(ref[2].min()) > 0
+        for a, r in zip(got, ref):
+            torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
+        del got, ref
+    del k, v, scales
+    torch.cuda.empty_cache()
 
 
 def _grid_case(ps, seed=0, B=6, pps=4):

@@ -69,7 +69,7 @@ def _port_parts(q, pool, tables, lengths, starts, device="cpu", plain=False):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("ps", [8, 32, 128])
+@pytest.mark.parametrize("ps", [8, 16, 32, 96, 128, 256])
 def test_parts_plain_matches_jax(ps, quant):
     case = _case(ps, quant, seed=ps)
     ref = _jax_parts(*case)
@@ -144,7 +144,7 @@ def _port_parts_mq(q, pool, tables, lengths, starts):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("KQ", [1, 3, 16])
+@pytest.mark.parametrize("KQ", [1, 3, 4, 5, 16, 17])
 @pytest.mark.parametrize("ps", [8, 32, 128])
 def test_parts_mq_plain_matches_jax(ps, KQ, quant):
     """Ragged, zero-length, windowed and fully masked rows; every query
@@ -185,6 +185,35 @@ def test_parts_mq_plain_matches_jax_mq_kernel_interpret():
     got = _port_parts_mq(q, pool, tables, lengths, starts)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g, np.asarray(r), atol=ATOL, rtol=1e-6)
+
+
+@pytest.mark.parametrize("mq", [False, True])
+def test_parts_launch_refuses_what_the_kernels_do_not_take(mq):
+    """The parts kernels' launch path raises before any build on what
+    the kernels do not take: a page size that is not a multiple of their
+    4-token vector loads, a head size with no instance, a pool not aligned
+    to the vector. Nothing is launched or counted."""
+    q, pool, tables, lengths, starts = (_mq_case(8, 4, False, seed=0) if mq
+                                        else _case(8, False))
+    q, k, v, tables, lengths, starts = (
+        torch.from_numpy(np.ascontiguousarray(x))
+        for x in (q, *pool, tables, lengths, starts))
+    name = "paged_decode_attention_parts" + ("_mq" if mq else "")
+    before = T.LAUNCHES[name]
+
+    def launch(q_, k_, v_):
+        return T._launch(name, mq, q_, k_, v_, None, tables, lengths, starts)
+
+    odd = torch.zeros(k.shape[0], NH, HS, 6)
+    with pytest.raises(ValueError, match="page_size 6"):
+        launch(q, odd, odd)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        launch(q[..., :48].contiguous(), k[:, :, :48].contiguous(),
+               v[:, :, :48].contiguous())
+    shifted = torch.zeros(k.numel() + 1)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        launch(q, shifted, shifted)
+    assert T.LAUNCHES[name] == before
 
 
 def test_cpu_route_counts_no_mq_launch():
