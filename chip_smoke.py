@@ -18,9 +18,12 @@ Phases (any failed check raises, and the script exits non-zero):
      also at the spec-verify shape (KQ=4), KQ=1 and suffix shapes (KQ=32,
      and KQ=96 above the TPU kernel's 64); the grid
      kernel at the CLI's shape (B=8, ps=32, pps=32, P=128, lengths
-     65-128) and at ps 8, 16 and 96 with zero, start >= length and
-     windowed rows; times from CUDA events beside the bound, and the
-     parts kernels' beside their times before the redesign;
+     65-128), at the probe's 10 live pages of 32 and at ps 8, 16, 30
+     (the scalar path) and 96 with zero, start >= length and windowed
+     rows; times from CUDA events beside the bound, and the three
+     kernels' beside their times before their redesign for Hopper; the
+     grid kernel's 8-warp blocks timed against a 4-warp instance of the
+     same template (built here);
   4. engine, headline config: GPT-2 124M (seeded random weights) served
      by InferenceEngine.run with int8 weights, int8 KV, bf16 activations,
      a bf16 prefill copy, page_size 128 and greedy 16-token chunks;
@@ -65,7 +68,10 @@ Phases (any failed check raises, and the script exits non-zero):
      every suite at --model 124m, then the GEMV and kernel suites at
      --model 1558m; one log line a suite with its seconds (the full
      tables go to build/chip_smoke_probe.txt); the paged-attention
-     launches equal the calls the probe made.
+     launches equal the calls the probe made; then one torch.profiler
+     trace of the grid kernel's CLI-shape call from phase 3 against the
+     timer (last, so that no host-timed phase follows a profiler
+     session).
 Every kernel time is the lab harness's: CUDA events over launches queued
 behind a sleep kernel, the median of 3 runs.
 The line before the last is a JSON object {"kernels": [...]} (fourteen
@@ -341,7 +347,16 @@ GRID_CASES = [
     ("ps96", dict(B=8, ps=96, pps=4, P=40,
                   lengths=[384, 0, 96, 97, 200, 5, 383, 250],
                   starts=[0, 0, 0, 96, 100, 7, 300, 0])),
+    # a page size that is not a multiple of 4 (the scalar path)
+    ("ps30", dict(B=8, ps=30, pps=8, P=70,
+                  lengths=[240, 0, 31, 100, 5, 239, 61, 180],
+                  starts=[0, 0, 30, 45, 7, 200, 0, 33])),
+    # the probe's `kernel` row: 10 live pages of 32 a row
+    ("cli10", dict(B=8, ps=32, pps=10, P=88, lengths=[320] * 8,
+                   starts=[0] * 8)),
 ]
+# grid cases timed against a 4-warp instance of the template
+GRID_WARP_CASES = ("cli", "cli10")
 # (pool, q dtype) pairs: q as the main path sends it (f32 over the fp32
 # engine's pool, bf16 over the headline int8 pool and over bf16 pools),
 # and int8 under an f32 q (fp32 activations over an int8 pool)
@@ -352,15 +367,122 @@ POOLS = (("f32", "f32"), ("bf16", "bf16"), ("int8", "bf16"),
 # to the log
 TIMED_CASES = {"headline", "spec", "suffix32", "long"}
 TIMED_POOLS = {("f32", "f32"), ("int8", "bf16")}
-# the parts kernels' times before their redesign for Hopper (one block
-# walking a row's pages in turn), µs a call, by (kernel, pool, case): this
+# the kernels' times before their redesign for Hopper (warps walking whole
+# pages in turn, scalar loads), µs a call, by (kernel, pool, case): this
 # script's phase 3 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6
-# keeps them beside the new times); the "long" case is newer than them
+# keeps them beside the new times); the other cases are newer than them
 BEFORE_US = {("sq", "f32", "headline"): 20.85,
               ("sq", "int8", "headline"): 22.10,
               ("mq", "f32", "spec"): 24.92, ("mq", "int8", "spec"): 33.57,
               ("mq", "f32", "suffix32"): 63.21,
-              ("mq", "int8", "suffix32"): 72.03}
+              ("mq", "int8", "suffix32"): 72.03,
+              ("grid", "f32", "cli"): 9.03, ("grid", "int8", "cli"): 11.98}
+
+
+def before(kind, kv, name, ms):
+    """'(before the redesign: ...)' for a timed case."""
+    was = BEFORE_US.get((kind, kv, name))
+    return "(before the redesign: " + (
+        f"{was:.2f} us, x{was / (ms * 1e3):.2f})" if was
+        else "not measured)")
+
+
+# the normalized template at 4 warps a block (the kept instance has 8),
+# built by phase 3 from the checkout's header to time the two on the same
+# tensors
+GRID_W4_SRC = r'''
+#include "paged_attention_parts.cuh"
+extern "C" int grid_w4(int q_kind, int kv_kind, const void* q, const void* k,
+                       const void* v, const void* ks, const void* vs,
+                       const void* tables, const void* lengths,
+                       const void* starts, void* out, int B, int NH, int HS,
+                       int ps, int pps, float scale, void* stream) {
+  if (HS != 64 || ps % parts::VEC) return (int)cudaErrorInvalidValue;
+  return parts::dispatch_kinds(q_kind, kv_kind, [&](auto qt, auto kv,
+                                                    auto quant) {
+    using QT = typename decltype(qt)::type;
+    using KV = typename decltype(kv)::type;
+    parts::parts_kernel<QT, KV, decltype(quant)::value, 64, 1, 4, true>
+        <<<dim3(B, NH), 128, 0, (cudaStream_t)stream>>>(
+            (const QT*)q, (const KV*)k, (const KV*)v, (const float*)ks,
+            (const float*)vs, (const int*)tables, (const int*)lengths,
+            (const int*)starts, (QT*)out, nullptr, nullptr, 1, NH, ps, pps,
+            scale);
+    return (int)cudaGetLastError();
+  });
+}
+'''
+
+
+def build_grid_w4(pa):
+    """Build GRID_W4_SRC into build/ and return a function that runs it
+    as the grid wrapper would (same arguments, a fresh output)."""
+    import ctypes
+    import math
+    import torch
+    from llmc_paged_tpu_torch.ops import _build
+    d = os.path.join(HERE, "build", "grid_w4")
+    os.makedirs(d, exist_ok=True)
+    src, so = os.path.join(d, "grid_w4.cu"), os.path.join(d, "libgrid_w4.so")
+    with open(src, "w") as f:
+        f.write(GRID_W4_SRC)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                           _build.CSRC, "-o", so, src], capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc grid_w4: {proc.stderr[-2000:]}")
+    fn = ctypes.CDLL(so).grid_w4
+    fn.argtypes, fn.restype = pa._kernel_fn("grid").argtypes, ctypes.c_int
+
+    def run(q, pool, tables, lengths, starts):
+        out = torch.empty_like(q)
+        ks, vs = (p.data_ptr() for p in pool[2:]) if len(pool) == 4 else (
+            None, None)
+        B, NH, HS = q.shape
+        _build.launch(fn, q.device, (
+            pa._KIND[q.dtype], pa._KIND[pool[0].dtype], q.data_ptr(),
+            pool[0].data_ptr(), pool[1].data_ptr(), ks, vs,
+            tables.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
+            out.data_ptr(), B, NH, HS, pool[0].shape[3], tables.shape[1],
+            1.0 / math.sqrt(HS)), "grid_w4")
+        return out
+    return run
+
+
+def trace_grid(torch, pa, records, n=100):
+    """Log the device kernels that n calls of the grid wrapper at the
+    CLI's shape launch (phase 3's tensors), from one torch.profiler
+    trace: their number, mean µs and names, beside the timer's µs a
+    call."""
+    for wrapper in ("paged_decode_attention_grid",
+                    "paged_decode_attention_quant_grid"):
+        rec = records[wrapper]
+        kvq, args = rec.pop("traced")
+        tr = trace_us(torch, lambda: run_parts(pa, *args, grid=True), n)
+        log(f"  grid {kvq} cli, torch.profiler: " + (
+            "no device activity (not measured)" if tr is None else
+            f"{tr[0]} kernels in {n} calls, {tr[1]:.2f} us each (the "
+            f"timer: {rec['ms'] * 1e3:.2f} us a call); {tr[2]}"))
+
+
+def trace_us(torch, fn, n):
+    """The device kernels that n calls of fn launch, from one
+    torch.profiler trace: (launches, mean µs a kernel, names); None when
+    the profiler reports no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    if not evs:
+        return None
+    us = sum(e.end_ns() - e.start_ns() for e in evs) / len(evs) / 1e3
+    return len(evs), us, sorted({e.name()[:90] for e in evs})
 
 
 def phase_kernels(torch, pa, device):
@@ -396,11 +518,9 @@ def phase_kernels(torch, pa, device):
                 t = time_case(torch, pa, q, pool, tables, lengths, starts)
                 if "ms" not in rec:
                     rec.update(t, shape=name)
-                was = BEFORE_US.get((kind, kv, name))
                 log(f"  {kind} {kvq} {name} time: kernel "
-                    f"{t['ms'] * 1e3:.2f} us (before the redesign: "
-                    + (f"{was:.2f} us, x{was / (t['ms'] * 1e3):.2f})"
-                       if was else "not measured)")
+                    f"{t['ms'] * 1e3:.2f} us "
+                    + before(kind, kv, name, t["ms"])
                     + f", plain {t['plain_ms'] * 1e3:.2f} us, bound "
                     f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
                     f"({t['bytes']} B, {t['ops']} f32 ops)")
@@ -408,6 +528,7 @@ def phase_kernels(torch, pa, device):
     # the grid kernel: every case timed; the JSON line takes the CLI
     # shape at the main path's q dtype (f32 over the fp32 CLI run's pool,
     # bf16 over the int8 run's)
+    grid_w4 = build_grid_w4(pa)
     for kv, qd in POOLS:
         for ci, (name, kw) in enumerate(GRID_CASES):
             q, pool, tables, lengths, starts = make_case(
@@ -429,14 +550,27 @@ def phase_kernels(torch, pa, device):
                           grid=True)
             log(f"  grid {kvq:10s} {name:6s} max|d| {err:.3e} "
                 f"{'ok' if ok and zeros else 'FAIL'}; kernel "
-                f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} "
+                f"{t['ms'] * 1e3:.2f} us "
+                + before("grid", kv, name, t["ms"])
+                + f", plain {t['plain_ms'] * 1e3:.2f} "
                 f"us, bound {t['bound_ms'] * 1e3:.3f} us by "
                 f"{t['bound_by']} ({t['bytes']} B, {t['ops']} f32 ops)")
             check(ok and zeros and bool(torch.isfinite(got).all()),
                   f"grid kernel vs plain mismatch: {kvq} {name}")
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if name in GRID_WARP_CASES and (kv, qd) in TIMED_POOLS:
+                args = (q, pool, tables, lengths, starts)
+                w4_err, w4_ok = grid_err(torch, grid_w4(*args), ref)
+                check(w4_ok, f"4-warp grid instance vs plain: {kvq} {name}")
+                w4 = device_ms(lambda: grid_w4(*args))
+                log(f"  grid {kvq} {name}: 8 warps a block (kept) "
+                    f"{t['ms'] * 1e3:.2f} us, 4 warps {w4 * 1e3:.2f} us "
+                    f"(max|d| {w4_err:.3e})")
             if name == "cli" and (kv, qd) in TIMED_POOLS:
-                rec.update(t, shape=name)
+                # traced at the end (trace_grid), after the host-timed
+                # phases, which a torch.profiler session could slow
+                rec.update(t, shape=name, traced=(kvq, (q, pool, tables,
+                                                        lengths, starts)))
             del q, pool, got, ref
     return records
 
@@ -1228,6 +1362,7 @@ def main() -> int:
     phase("phase 12: the decode-step probe (ops/dev/probe_decode.py), every "
           "suite at 124M, the GEMV and kernel suites at 1558M")
     phase_probe(pa)
+    trace_grid(torch, pa, records)
     phase("done")
     log(f"  {time.monotonic() - t_start:.1f} s in all")
 

@@ -14,8 +14,9 @@
 //   out (B, NH, HS) = acc / l, or zeros where l == 0.
 // NEG_INF is -1e30; a lane whose score is <= NEG_INF/2 gets p = 0. For int8
 // pools the (L, P, NH, ps) f32 scales multiply K and V BEFORE the dots. The
-// arithmetic is that of the normalized grid kernel (paged_attention_grid.cu):
-// the TPU full-pool and grid kernels share it.
+// TPU full-pool and grid kernels share this arithmetic; the loop below is
+// the normalized grid kernel's first design, which paged_attention_grid.cu
+// keeps only as its scalar path (it now runs the parts template).
 //
 // The layer index lives in device memory. The TPU kernels took it as a
 // scalar prefetch that picked the plane in the BlockSpec index map; here the

@@ -1,17 +1,20 @@
 // Flash-decode "parts" over a paged KV pool, for Hopper (sm_90a): the one
-// template behind the single-query kernel (paged_attention.cu, QTILE = 1)
-// and the multi-query kernel (paged_attention_mq.cu, QTILE = 4).
+// template behind the single-query kernel (paged_attention.cu, QTILE = 1),
+// the multi-query kernel (paged_attention_mq.cu, QTILE = 4) and, with NORM,
+// the normalized grid kernel (paged_attention_grid.cu, QTILE = 1).
 //
 // Contract (the JAX package's parts contract): for each row b, query j and
 // head h, attention over the row's live tokens [start, len) read through
 // the block table, no causal mask inside the pool, f32 online softmax,
 // UNNORMALIZED outputs acc (B, KQ, NH, HS), m (B, KQ, NH), l (B, KQ, NH),
-// all f32 (KQ = 1 is the single-query layout (B, NH, HS)). Scores are
-// multiplied by rsqrt(HS), then (int8) by the token's K scale. NEG_INF is
-// -1e30 (never -inf); a score <= NEG_INF/2 gets p = 0; l sums p BEFORE the
-// int8 V scale multiplies p; a row with no live token gives m = NEG_INF,
-// l = 0, acc = 0. Layout: q (B, KQ, NH, HS) f32/bf16; pages (P, NH, HS, ps)
-// token-minor; scales (P, NH, ps). All arithmetic is f32.
+// all f32 (KQ = 1 is the single-query layout (B, NH, HS)); with NORM the
+// warps' merge writes acc / l instead (l == 0 -> 1, so a row with no live
+// token gives exact zeros) in q's dtype, rounded once, and no m or l.
+// Scores are multiplied by rsqrt(HS), then (int8) by the token's K scale.
+// NEG_INF is -1e30 (never -inf); a score <= NEG_INF/2 gets p = 0; l sums p
+// BEFORE the int8 V scale multiplies p; a row with no live token gives
+// m = NEG_INF, l = 0, acc = 0. Layout: q (B, KQ, NH, HS) f32/bf16; pages
+// (P, NH, HS, ps) token-minor; scales (P, NH, ps). All arithmetic is f32.
 //
 // Bound: bytes (K/V and scales of the live tokens) at the serving shapes,
 // where the time is latency: the launch, then the dependent loads of a
@@ -39,7 +42,8 @@
 // integer-to-float instruction.
 //
 // Vector loads need a page size and pool alignment of 4 elements (the
-// wrapper checks both, the launch refuses ps % 4 != 0): a 4-token group
+// parts wrappers check both, the launch refuses ps % 4 != 0; the grid
+// kernel's launcher takes a scalar kernel for the rest): a 4-token group
 // then never straddles a page, and a window start or a row end inside a
 // group is masked, never loaded around. Only the live table entries are
 // read; page offsets are 64-bit. Shared memory is static (under 11 KB at
@@ -56,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace parts {
 
@@ -106,6 +112,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// an f32 result stored in the output's dtype (bf16: round to nearest
+// even, as torch's .to())
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
@@ -130,15 +143,20 @@ __device__ __forceinline__ float group_reduce(const float (&s)[VEC], int dg) {
   return (up1 ? a1 : a0) + __shfl_xor_sync(FULL, up1 ? a0 : a1, 1);
 }
 
+// acc_out: f32 parts, or with NORM the normalized output in q's dtype
+template <typename QT, bool NORM>
+using AccOut = std::conditional_t<NORM, QT, float>;
+
 template <typename QT, typename KV, bool QUANT, int HS, int QTILE,
-          int WARPS>
+          int WARPS, bool NORM = false>
 __global__ void __launch_bounds__(WARPS * 32)
 parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
              const KV* __restrict__ v_pages,
              const float* __restrict__ k_scale,
              const float* __restrict__ v_scale,
              const int* __restrict__ tables, const int* __restrict__ lengths,
-             const int* __restrict__ starts, float* __restrict__ acc_out,
+             const int* __restrict__ starts,
+             AccOut<QT, NORM>* __restrict__ acc_out,
              float* __restrict__ m_out, float* __restrict__ l_out, int KQ,
              int NH, int ps, int pps, float scale) {
   constexpr int THREADS = WARPS * 32;
@@ -301,19 +319,24 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
       L += wt * l_s[w][j];
     }
     const size_t r = ((size_t)b * KQ + q0 + j) * NH + h;
-    acc_out[r * HS + d] = a;
-    if (d == 0) {
-      m_out[r] = M;
-      l_out[r] = L;
+    if constexpr (NORM) {
+      store(acc_out + r * HS + d, a / (L == 0.f ? 1.f : L));
+    } else {
+      acc_out[r * HS + d] = a;
+      if (d == 0) {
+        m_out[r] = M;
+        l_out[r] = L;
+      }
     }
   }
 }
 
 // One launch on `stream`, one block a (row, head, query tile): 8 warps, or
-// 4 when a multi-query call has several query tiles. Returns
-// cudaGetLastError() after the launch; an unsupported head size or page
-// size returns cudaErrorInvalidValue without launching.
-template <typename QT, typename KV, bool QUANT, int QTILE>
+// 4 when a multi-query call has several query tiles. With NORM, `acc` is
+// the normalized (B, KQ, NH, HS) output in q's dtype and m, l are unused.
+// Returns cudaGetLastError() after the launch; an unsupported head size or
+// page size returns cudaErrorInvalidValue without launching.
+template <typename QT, typename KV, bool QUANT, int QTILE, bool NORM>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          const void* ks, const void* vs, const void* tables,
                          const void* lengths, const void* starts, void* acc,
@@ -332,7 +355,7 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
         static_cast<const KV*>(v), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<const int*>(tables),
         static_cast<const int*>(lengths), static_cast<const int*>(starts),
-        static_cast<float*>(acc), static_cast<float*>(m),
+        static_cast<AccOut<QT, NORM>*>(acc), static_cast<float*>(m),
         static_cast<float*>(l), KQ, NH, ps, pps, scale);
   };
   // Several query tiles make many blocks of up to 255 registers a thread:
@@ -343,38 +366,48 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   // serving lengths.
   if constexpr (QTILE > 1) {
     if (KQ > QTILE) {
-      args(parts_kernel<QT, KV, QUANT, 64, QTILE, 4>, 4);
+      args(parts_kernel<QT, KV, QUANT, 64, QTILE, 4, NORM>, 4);
       return cudaGetLastError();
     }
   }
-  args(parts_kernel<QT, KV, QUANT, 64, QTILE, 8>, 8);
+  args(parts_kernel<QT, KV, QUANT, 64, QTILE, 8, NORM>, 8);
   return cudaGetLastError();
 }
 
-// Dispatch on the element kinds: q KIND_F32 | KIND_BF16; kv KIND_F32 |
-// KIND_BF16 (ks/vs ignored) | KIND_I8 (ks/vs required).
-template <int QTILE>
+template <typename T> struct Type { using type = T; };
+
+// Calls f(Type<QT>{}, Type<KV>{}, std::bool_constant<QUANT>{}) for the
+// element kinds: q KIND_F32 | KIND_BF16; kv KIND_F32 | KIND_BF16 (ks/vs
+// ignored) | KIND_I8 (ks/vs required). Another kind returns
+// cudaErrorInvalidValue.
+template <typename F>
+int dispatch_kinds(int q_kind, int kv_kind, F&& f) {
+  const auto with_kv = [&](auto qt) -> int {
+    if (kv_kind == KIND_F32) return f(qt, Type<float>{}, std::false_type{});
+    if (kv_kind == KIND_BF16)
+      return f(qt, Type<__nv_bfloat16>{}, std::false_type{});
+    if (kv_kind == KIND_I8) return f(qt, Type<int8_t>{}, std::true_type{});
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  if (q_kind == KIND_F32) return with_kv(Type<float>{});
+  if (q_kind == KIND_BF16) return with_kv(Type<__nv_bfloat16>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One launch of the template for the element kinds (dispatch_kinds).
+template <int QTILE, bool NORM = false>
 int launch(int q_kind, int kv_kind, const void* q, const void* k,
            const void* v, const void* ks, const void* vs, const void* tables,
            const void* lengths, const void* starts, void* acc, void* m,
            void* l, int B, int KQ, int NH, int HS, int ps, int pps,
            float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PARTS_LAUNCH(QT, KV, QUANT)                                         \
-  return static_cast<int>(launch_typed<QT, KV, QUANT, QTILE>(              \
-      q, k, v, ks, vs, tables, lengths, starts, acc, m, l, B, KQ, NH, HS,  \
-      ps, pps, scale, s))
-  if (q_kind == KIND_F32) {
-    if (kv_kind == KIND_F32) PARTS_LAUNCH(float, float, false);
-    if (kv_kind == KIND_BF16) PARTS_LAUNCH(float, __nv_bfloat16, false);
-    if (kv_kind == KIND_I8) PARTS_LAUNCH(float, int8_t, true);
-  } else if (q_kind == KIND_BF16) {
-    if (kv_kind == KIND_F32) PARTS_LAUNCH(__nv_bfloat16, float, false);
-    if (kv_kind == KIND_BF16) PARTS_LAUNCH(__nv_bfloat16, __nv_bfloat16, false);
-    if (kv_kind == KIND_I8) PARTS_LAUNCH(__nv_bfloat16, int8_t, true);
-  }
-#undef PARTS_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_kinds(q_kind, kv_kind, [&](auto qt, auto kv, auto quant) {
+    return static_cast<int>(
+        launch_typed<typename decltype(qt)::type, typename decltype(kv)::type,
+                     decltype(quant)::value, QTILE, NORM>(
+            q, k, v, ks, vs, tables, lengths, starts, acc, m, l, B, KQ, NH,
+            HS, ps, pps, scale, static_cast<cudaStream_t>(stream)));
+  });
 }
 
 }  // namespace parts

@@ -14,9 +14,11 @@ no causal mask inside the pool (acc (B,KQ,NH,HS) f32, m/l (B,KQ,NH)
 f32): speculative verify and suffix prefill merge them with their causal
 in-flight block. ``csrc/paged_attention_grid.cu`` computes NORMALIZED
 single-query attention (B,NH,HS) in q's dtype, int8 scales applied
-before the dots: the normalized wrappers route to it when the page size
-is not a multiple of 128, as the JAX package routes to its grid kernel,
-and divide the single-query parts otherwise.
+after the dots as in the parts kernels (the JAX grid kernel scales K and
+V before them: the same maths, rounded elsewhere): the normalized
+wrappers route to it when the page size is not a multiple of 128, as the
+JAX package routes to its grid kernel, and divide the single-query parts
+otherwise.
 
 Dispatch: a tensor on the CPU goes to the plain version; a tensor on the
 card launches the kernel or raises — there is no fallback. Each launch
@@ -356,10 +358,12 @@ def paged_decode_attention_grid(q, k_pages, v_pages, block_tables, lengths,
                                 starts=None):
     """NORMALIZED single-query attention over a float/bf16 paged pool
     (B, NH, HS) in q.dtype; a fully masked row gives zeros. On the card
-    the grid kernel (``csrc/paged_attention_grid.cu``) takes any page
-    size and head_dim 64; on the CPU the plain version, which
-    like the kernel (and the TPU's grid kernel) computes in f32 and
-    rounds the result to q.dtype once."""
+    the grid kernel (``csrc/paged_attention_grid.cu``: the parts
+    template's normalized instance, or a scalar kernel for page sizes
+    that are not a multiple of 4 and unaligned pools) takes any page size
+    and head_dim 64; on the CPU the plain version, which like the kernel
+    (and the TPU's grid kernel) computes in f32 and rounds the result to
+    q.dtype once."""
     if starts is None:
         starts = torch.zeros_like(lengths)
     if _route(q) == "cpu":
@@ -372,7 +376,9 @@ def paged_decode_attention_grid(q, k_pages, v_pages, block_tables, lengths,
 def paged_decode_attention_quant_grid(q, k_pages, v_pages, k_scale, v_scale,
                                       block_tables, lengths, starts=None):
     """INT8-KV normalized attention (see paged_decode_attention_grid):
-    k_scale/v_scale f32 (P, NH, ps) multiply K and V before the dots."""
+    k_scale/v_scale f32 (P, NH, ps); on the card the K scale multiplies
+    each score after its dot and the V scale each p, where the plain
+    version dequantizes the pool first."""
     if starts is None:
         starts = torch.zeros_like(lengths)
     if _route(q) == "cpu":

@@ -245,38 +245,44 @@ def _grid_case(ps, seed=0, B=6, pps=4):
     return q, (k, v), (kq, vq, ks, vs), tables, lengths, starts
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("qd", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("ps", [8, 16, 32, 96])
-def test_grid_kernel_matches_plain_on_the_card(cuda, ps, kv, qd):  # noqa: F811
-    """The normalized grid kernel vs its plain version, reached through
-    the normalized wrappers (ps % 128 != 0 routes there). Tolerance: an
-    f32 output within 1e-5 abs + 1e-5 rel (f32 sums in another order); a
-    bf16 output within one bf16 ulp (both compute in f32 and round once)
-    plus 1e-6 (the f32 sums differ by ~1e-7 of the values they sum, more
-    than a bf16 ulp of an output near 0). The zero-length and
-    start >= length rows are exact zeros."""
-    q, fpool, qpool, tables, lengths, starts = _grid_case(ps, seed=ps)
+def _grid_call(cuda, case, kv, qd, shift=0):
+    """Run the grid entry (paged_decode_attention[_quant]_grid, any page
+    size) on ``case`` (numpy, from _grid_case) on the card; with
+    ``shift``, K and V are views ``shift`` elements into their storage.
+    Checks that one launch was counted; returns the output and the plain
+    version's on the same tensors."""
+    q, fpool, qpool, tables, lengths, starts = case
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     tq = torch.from_numpy(q).to(cuda).to(dt[qd])
     idx = [torch.from_numpy(a).to(cuda) for a in (tables, lengths, starts)]
     if kv == "int8":
         pool = [torch.from_numpy(a).to(cuda) for a in qpool]
-        fn, ref_fn = (T.paged_decode_attention_quant,
-                      T.paged_decode_attention_quant_grid_ref)
         name = "paged_decode_attention_quant_grid"
     else:
         pool = [torch.from_numpy(a).to(cuda).to(dt[kv]) for a in fpool]
-        fn, ref_fn = (T.paged_decode_attention,
-                      T.paged_decode_attention_grid_ref)
         name = "paged_decode_attention_grid"
+    for i in (0, 1):
+        if shift:
+            t = pool[i]
+            view = torch.empty(t.numel() + shift, dtype=t.dtype,
+                               device=cuda)[shift:].view(t.shape)
+            view.copy_(t)
+            pool[i] = view
     before = T.LAUNCHES[name]
-    got = fn(tq, *pool, *idx)
+    got = getattr(T, name)(tq, *pool, *idx)
     torch.cuda.synchronize()
     assert T.LAUNCHES[name] == before + 1
-    ref = ref_fn(tq, *pool, *idx)
+    ref = getattr(T, name + "_ref")(tq, *pool, *idx)
     assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert bool(torch.isfinite(got).all())
+    return got, ref
+
+
+def _check_grid(got, ref, qd):
+    """An f32 output within 1e-5 abs + 1e-5 rel (f32 sums in another
+    order); a bf16 output within one bf16 ulp (both compute in f32 and
+    round once) plus 1e-6 (the f32 sums differ by ~1e-7 of the values
+    they sum, more than a bf16 ulp of an output near 0)."""
     g, r = got.float(), ref.float()
     if qd == "bfloat16":
         ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(
@@ -284,7 +290,63 @@ def test_grid_kernel_matches_plain_on_the_card(cuda, ps, kv, qd):  # noqa: F811
         assert bool(((g - r).abs() <= ulp + 1e-6).all())
     else:
         torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
-    assert bool((g[1] == 0).all()) and bool((g[2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("ps", [6, 8, 16, 30, 32, 96, 128, 256])
+def test_grid_kernel_matches_plain_on_the_card(cuda, ps, kv, qd):  # noqa: F811
+    """The normalized grid kernel vs its plain version through the grid
+    entries: the parts template's vector path at page sizes that are a
+    multiple of 4 (128 and 256 too, which the normalized wrappers send to
+    the parts kernel), the scalar path at 6 and 30 (_check_grid's
+    tolerance). The zero-length and start >= length rows are exact
+    zeros."""
+    got, ref = _grid_call(cuda, _grid_case(ps, seed=ps), kv, qd)
+    _check_grid(got, ref, qd)
+    assert bool((got[1] == 0).all()) and bool((got[2] == 0).all())
+
+
+def _grid_design_case(seed):
+    """Rows for the template's design at ps 32: more chunks than warps
+    (a 1024-token row, 11 live pages), a window start and a row end
+    inside a 4-token group, start > length, negative starts below -ps
+    and inside (-ps, 0)."""
+    rng = np.random.default_rng(seed)
+    B, ps, pps = 6, 32, 34
+    P = B * pps + 3
+    q = rng.standard_normal((B, NH, HS)).astype(np.float32)
+    k, v = (rng.standard_normal((P, NH, HS, ps)).astype(np.float32)
+            for _ in range(2))
+    ks, vs = (rng.uniform(1e-3, 2e-2, (P, NH, ps)).astype(np.float32)
+              for _ in range(2))
+    kq, vq = (rng.integers(-127, 128, (P, NH, HS, ps)).astype(np.int8)
+              for _ in range(2))
+    tables = rng.permutation(P)[: B * pps].reshape(B, pps).astype(np.int32)
+    lengths = np.array([1024, 330, 203, 40, 100, 7], np.int32)
+    starts = np.array([0, 0, 37, 50, -40, -5], np.int32)
+    return q, (k, v), (kq, vq, ks, vs), tables, lengths, starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("kv,qd", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16"),
+                                   ("int8", "bfloat16"), ("int8", "float32")])
+def test_grid_kernel_design_rows_on_the_card(cuda, kv, qd, shift):  # noqa: F811
+    """_grid_design_case's rows against the plain version (_check_grid),
+    on aligned pools (the template's vector path) and on views one
+    element into their storage (the scalar path). The start > length row
+    is exact zeros; a negative start gives exactly what start 0 gives."""
+    case = _grid_design_case(seed=21)
+    got, ref = _grid_call(cuda, case, kv, qd, shift)
+    _check_grid(got, ref, qd)
+    assert bool((got[3] == 0).all())
+    q, fpool, qpool, tables, lengths, starts = case
+    zero = (q, fpool, qpool, tables, lengths, np.maximum(starts, 0))
+    got0, _ = _grid_call(cuda, zero, kv, qd, shift)
+    assert torch.equal(got[4:], got0[4:])
 
 
 @pytest.mark.cuda

@@ -253,7 +253,7 @@ def _bf16_ulp(x):
 
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("qd", ["float32", "bfloat16"])
-@pytest.mark.parametrize("ps", [8, 16, 32, 96])
+@pytest.mark.parametrize("ps", [6, 8, 16, 30, 32, 96])
 def test_grid_plain_matches_jax_grid_kernel_interpret(ps, qd, kv):
     """The port's CPU route of paged_decode_attention[_quant]_grid (and of
     the normalized wrappers, which route there at ps % 128 != 0) against
@@ -297,6 +297,21 @@ def test_grid_plain_matches_jax_grid_kernel_interpret(ps, qd, kv):
         else:
             np.testing.assert_allclose(g, r, atol=ATOL, rtol=0)
         assert np.all(g[1] == 0) and np.all(g[3] == 0)   # empty, masked
+
+
+def test_grid_launch_refuses_what_the_kernel_does_not_take():
+    """The grid kernel's launch path raises before any build on a head
+    size it has no instance for; nothing is launched or counted. Every
+    page size and alignment is taken (the scalar path covers the rest)."""
+    q, k, v, tables, lengths, starts = (
+        torch.from_numpy(x) for x in _grid_case(8, seed=0))
+    name = "paged_decode_attention_grid"
+    before = T.LAUNCHES[name]
+    with pytest.raises(ValueError, match="head_dim 48"):
+        T._launch_grid(name, q[..., :48].contiguous(),
+                       k[:, :, :48].contiguous(), v[:, :, :48].contiguous(),
+                       None, tables, lengths, starts)
+    assert T.LAUNCHES[name] == before
 
 
 @pytest.mark.parametrize("ps", [32, 128])
