@@ -56,6 +56,8 @@ Phases (any failed check raises, and the script exits non-zero):
      of bench_int8_matmul (--set all), bench_layernorm, bench_softmax,
      bench_matmul, bench_paged_attention, bench_fusion, lab_flatwide and
      lab_full_pool, every validated version held against its reference;
+     int8_matmul in both modes beside the serving int8 linear and the bf16
+     dense product at every bench_int8_matmul shape;
      the launches of int8_matmul, layernorm_rows, softmax_rows,
      flatwide_parts and the two full-pool wrappers equal the calls the
      harness made (the full tables go to build/chip_smoke_lab.txt); then
@@ -407,7 +409,7 @@ extern "C" int grid_w4(int q_kind, int kv_kind, const void* q, const void* k,
             (const QT*)q, (const KV*)k, (const KV*)v, (const float*)ks,
             (const float*)vs, (const int*)tables, (const int*)lengths,
             (const int*)starts, (QT*)out, nullptr, nullptr, 1, NH, ps, pps,
-            scale);
+            scale, parts::Plane{});
     return (int)cudaGetLastError();
   });
 }
@@ -867,10 +869,25 @@ def phase_lab_sweeps():
                     want[key] += r["calls"]
             for cfg, cells in by_cfg.items():
                 log(f"    {cfg}: {', '.join(cells)}")
+    log_int8_lab(records["bench_int8_matmul"])
     got = {k: v for c in counts for k, v in c.items()}
     check(got == want, f"lab launches {got} != the harness's calls {want}")
     check(all(v > 0 for v in got.values()), f"a lab kernel never ran: {got}")
     return got, records
+
+
+def log_int8_lab(recs):
+    """int8_matmul in both modes beside the serving int8 linear (a plain
+    product over the weight dequantized every call) and the bf16 dense
+    product, at every bench_int8_matmul shape: us a call."""
+    names = (("bf16 mode", "v1_cuda_fused"), ("fp32 mode", "v1_cuda_fp32exact"),
+             ("int8_linear (port)", "int8_linear (port)"),
+             ("bf16 dense", "bf16_matmul (serving)"))
+    ms = {(r["name"], r["config"]): r["ms"] for r in recs}
+    log("  int8_matmul beside the serving int8 linear, us a call:")
+    for cfg in dict.fromkeys(r["config"] for r in recs):
+        log(f"    {cfg}: " + ", ".join(
+            f"{label} {ms[(v, cfg)] * 1e3:.2f}" for label, v in names))
 
 
 def lab_cost(torch, key, cfg, device):
@@ -878,8 +895,10 @@ def lab_cost(torch, key, cfg, device):
     on the sweep's inputs at ``cfg`` (made again from the module's seed),
     and one PyTorch call of the same function with its name (None for
     flatwide and the full-pool kernel: no PyTorch call reads K/V through
-    a block table). The full-pool kernel's bound is the grid kernel's on
-    the plane it reads, plus the layer index."""
+    a block table). int8_matmul's operations are bf16 products on the
+    tensor cores, three a product in the fp32-exact mode (x split into
+    three bf16 terms). The full-pool kernel's bound is the grid kernel's
+    on the plane it reads, plus the layer index."""
     from llmc_paged_tpu_torch.ops import int8 as Q
     from llmc_paged_tpu_torch.ops.dev import bench_int8_matmul
     from llmc_paged_tpu_torch.ops.dev import bench_layernorm as LN
@@ -901,9 +920,11 @@ def lab_cost(torch, key, cfg, device):
             library = lambda: torch.matmul(xb, wdq.t())
             lib_name = ("bf16 torch.matmul over a pre-dequantized weight "
                         f"(_weight_int8pack_mm: {str(e).splitlines()[0]})")
-        peak = PEAK_BF16_OPS_S if key.endswith("bf16") else PEAK_F32_OPS_S
-        return (OC * IC + B * IC * 4 + B * OC * 4 + OC * 4, 2 * B * OC * IC,
-                peak, library, lib_name)
+        # the tensor cores' bf16 rate: the fp32-exact mode's fastest exact
+        # route is three bf16 products (x split into three bf16 terms)
+        terms = 1 if key.endswith("bf16") else 3
+        return (OC * IC + B * IC * 4 + B * OC * 4 + OC * 4,
+                terms * 2 * B * OC * IC, PEAK_BF16_OPS_S, library, lib_name)
     if key == "layernorm_rows":
         R, C = cfg
         x, w, b = LN.make_args(R, C, device)

@@ -10,13 +10,11 @@
 // Contract (the TPU kernels'): for each row b and head h, single-query
 // attention over the row's pages of plane `layer`, read through the block
 // table, positions outside [start, len) masked, f32 online softmax, output
-// NORMALIZED and in q's dtype:
-//   out (B, NH, HS) = acc / l, or zeros where l == 0.
+// NORMALIZED and in q's dtype, rounded once:
+//   out (B, NH, HS) = acc / l, or zeros where l == 0 (no live token,
+//   including start >= len).
 // NEG_INF is -1e30; a lane whose score is <= NEG_INF/2 gets p = 0. For int8
-// pools the (L, P, NH, ps) f32 scales multiply K and V BEFORE the dots. The
-// TPU full-pool and grid kernels share this arithmetic; the loop below is
-// the normalized grid kernel's first design, which paged_attention_grid.cu
-// keeps only as its scalar path (it now runs the parts template).
+// pools the (L, P, NH, ps) f32 scales multiply K and V BEFORE the dots.
 //
 // The layer index lives in device memory. The TPU kernels took it as a
 // scalar prefetch that picked the plane in the BlockSpec index map; here the
@@ -28,74 +26,53 @@
 // Offsets are 64-bit: plane * P * NH * HS * ps passes 2^31 elements at the
 // 1.5B depth (48 x 224 x 25 x 64 x 128 = 2.2e9 int8 elements at P = 224).
 //
-// Design (the grid kernel's, over a plane base): grid (B, NH); the block's
-// WARPS warps split the row's LIVE pages [start/ps, (len-1)/ps] (no other
-// table entry is read: past the live range an entry may hold anything,
-// including the drop sentinel P; a live entry is clamped to [0, P) so a bad
-// one cannot read outside the pool); a lane holds one token of a 32-token
-// chunk, acc[HS] in registers; a per-warp online softmax, merged across the
-// warps in shared memory. start >= len reads nothing and gives zeros. The
-// TPU grid walked every table entry in order, one page a step; blocks here
-// run in no order, so nothing carries between them.
-//
-// Bound on the H100: bytes (the K/V and scales of the valid tokens). At the
+// Bound on the H100: bytes (the K/V and scales of the live tokens). At the
 // 124M decode shape (B=8, NH=12, ps=128, lengths <= 384) that is ~3 MB
 // (f32) or ~1 MB (int8): 1-3 us at 3.35 TB/s, so a call is bound by its
-// launch and its dependent per-chunk reductions. Plain loads, no
-// cp.async/TMA: a first kernel that is right.
+// launch and its dependent loads (layer -> length -> table entry -> K/V).
+//
+// Design: two paths, chosen from the shape and the pointers, never by a
+// failure:
+//   * ps % 4 == 0 and pools (and int8 scales) aligned to a 4-element vector:
+//     the parts template's PLANE instance (paged_attention_parts.cuh,
+//     QTILE = 1, NORM, 8 warps), the normalized grid kernel's design over a
+//     plane base: the warps split the row's live range in 32-token chunks
+//     across pages, a lane loads 4 tokens x 16 head dims of K and V as
+//     vectors, int8 converts by byte permutes, one merge divides by l. The
+//     plane flavour adds the layer read and clamp, the 64-bit plane base,
+//     a clamp of each live table entry to [0, P), and the int8 scales
+//     applied to K and V before the dots.
+//   * any other page size or alignment: full_scalar_kernel below (the first
+//     design): grid (B, NH); 4 warps take the row's live pages in turn (only
+//     live entries are read, each clamped to [0, P)); a lane holds one token
+//     of a 32-token chunk, acc[HS] in registers, scalar loads; a per-warp
+//     online softmax merged across the warps in shared memory.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "paged_attention_parts.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
+using parts::NEG_INF;
+using parts::to_f32;
+
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_f32(int8_t x) {
   return static_cast<float>(x);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch's .to()
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 template <typename QT, typename KV, bool QUANT, int HS>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_full_kernel(const QT* __restrict__ q,
-                         const KV* __restrict__ k_pool,
-                         const KV* __restrict__ v_pool,
-                         const float* __restrict__ k_scale,
-                         const float* __restrict__ v_scale,
-                         const int* __restrict__ layer_ptr, int layer_host,
-                         const int* __restrict__ tables,
-                         const int* __restrict__ lengths,
-                         const int* __restrict__ starts,
-                         QT* __restrict__ out, int L, int P, int NH, int ps,
-                         int pps, float scale) {
+full_scalar_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pool,
+                   const KV* __restrict__ v_pool,
+                   const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale,
+                   const int* __restrict__ layer_ptr, int layer_host,
+                   const int* __restrict__ tables,
+                   const int* __restrict__ lengths,
+                   const int* __restrict__ starts, QT* __restrict__ out,
+                   int L, int P, int NH, int ps, int pps, float scale) {
   __shared__ float q_s[HS];
   __shared__ float acc_s[WARPS][HS];
   __shared__ float m_s[WARPS], l_s[WARPS];
@@ -105,7 +82,7 @@ paged_decode_full_kernel(const QT* __restrict__ q,
   const int layer = min(max(layer_ptr ? layer_ptr[0] : layer_host, 0), L - 1);
   const size_t plane = static_cast<size_t>(layer) * P;  // pages before it
   const int length = lengths[b];
-  const int start = starts[b];
+  const int start = max(starts[b], 0);   // a negative start reads from 0
   const int first = start / ps;
   const int last = length > 0 ? min((length - 1) / ps, pps - 1) : -1;
   const int num = start < length ? max(last - first + 1, 0) : 0;
@@ -144,7 +121,7 @@ paged_decode_full_kernel(const QT* __restrict__ q,
         }
         s = dot * scale;
       }
-      const float m_new = fmaxf(m, warp_max(s));
+      const float m_new = fmaxf(m, parts::warp_max(s));
       const float p = s > NEG_INF * 0.5f ? expf(s - m_new) : 0.f;
       const float alpha = expf(m - m_new);
       l = l * alpha + p;
@@ -164,10 +141,10 @@ paged_decode_full_kernel(const QT* __restrict__ q,
   }
 
   // each warp's (m, l, acc) over its lanes, then the merge across warps
-  const float lw = warp_sum(l);
+  const float lw = parts::warp_sum(l);
 #pragma unroll
   for (int d = 0; d < HS; ++d) {
-    const float a = warp_sum(acc[d]);
+    const float a = parts::warp_sum(acc[d]);
     if (lane == 0) acc_s[warp][d] = a;
   }
   if (lane == 0) {
@@ -190,36 +167,29 @@ paged_decode_full_kernel(const QT* __restrict__ q,
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) a += alpha_w[w] * acc_s[w][d];
-    out[row * HS + d] = from_f32<QT>(a / Lsum);
+    parts::store(out + row * HS + d, a / Lsum);
   }
 }
 
-template <typename QT, typename KV, bool QUANT>
-cudaError_t launch(int HS, const void* q, const void* k, const void* v,
-                   const void* ks, const void* vs, const void* layer,
-                   int layer_host, const void* tables, const void* lengths,
-                   const void* starts, void* out, int B, int L, int P, int NH,
-                   int ps, int pps, float scale, cudaStream_t stream) {
-  // one instance per head size: acc[HS] is a register tile. 64 is every
-  // GPT-2 size's (124M to 1.5B); another size is one more case here.
-  if (HS != 64) return cudaErrorInvalidValue;
-  dim3 grid(B, NH);
-  paged_decode_full_kernel<QT, KV, QUANT, 64><<<grid, THREADS, 0, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(layer),
-      layer_host, static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<const int*>(starts),
-      static_cast<QT*>(out), L, P, NH, ps, pps, scale);
-  return cudaGetLastError();
+// the template's vector path takes the call: 4-token pages, pools (and
+// int8 scales) aligned to a 4-element vector of their element kind
+bool vector_path(int kv_kind, const void* k, const void* v, const void* ks,
+                 const void* vs, int ps) {
+  const auto aligned = [](const void* p, uintptr_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  const uintptr_t vec = parts::VEC * (kv_kind == parts::KIND_F32    ? 4
+                                      : kv_kind == parts::KIND_BF16 ? 2
+                                                                    : 1);
+  return ps % parts::VEC == 0 && aligned(k, vec) && aligned(v, vec) &&
+         (kv_kind != parts::KIND_I8 ||
+          (aligned(ks, 4 * parts::VEC) && aligned(vs, 4 * parts::VEC)));
 }
 
 }  // namespace
 
-// Element kinds, shared with the Python wrapper (ops/paged_attention.py).
-enum { KIND_F32 = 0, KIND_BF16 = 1, KIND_I8 = 2 };
-
-// q_kind: KIND_F32 | KIND_BF16 (out has q's kind). kv_kind: KIND_F32 |
+// Element kinds: parts::KIND_*, shared with the Python wrapper
+// (ops/paged_attention.py). q_kind: KIND_F32 | KIND_BF16 (out has q's kind). kv_kind: KIND_F32 |
 // KIND_BF16 (ks/vs ignored) | KIND_I8 (ks/vs required). layer: a device
 // int32 read by the kernel, or nullptr to use layer_host. HS: 64. Returns
 // cudaGetLastError() after the launch; an unsupported kind or head size
@@ -232,20 +202,27 @@ extern "C" int paged_decode_full(int q_kind, int kv_kind, const void* q,
                                  const void* starts, void* out, int B, int L,
                                  int P, int NH, int HS, int ps, int pps,
                                  float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH(QT, KV, QUANT)                                               \
-  return static_cast<int>(launch<QT, KV, QUANT>(                           \
-      HS, q, k, v, ks, vs, layer, layer_host, tables, lengths, starts, out, \
-      B, L, P, NH, ps, pps, scale, s))
-  if (q_kind == KIND_F32) {
-    if (kv_kind == KIND_F32) LAUNCH(float, float, false);
-    if (kv_kind == KIND_BF16) LAUNCH(float, __nv_bfloat16, false);
-    if (kv_kind == KIND_I8) LAUNCH(float, int8_t, true);
-  } else if (q_kind == KIND_BF16) {
-    if (kv_kind == KIND_F32) LAUNCH(__nv_bfloat16, float, false);
-    if (kv_kind == KIND_BF16) LAUNCH(__nv_bfloat16, __nv_bfloat16, false);
-    if (kv_kind == KIND_I8) LAUNCH(__nv_bfloat16, int8_t, true);
-  }
-#undef LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (vector_path(kv_kind, k, v, ks, vs, ps))
+    return parts::launch<1, true, true>(
+        q_kind, kv_kind, q, k, v, ks, vs, tables, lengths, starts, out,
+        nullptr, nullptr, B, 1, NH, HS, ps, pps, scale, stream,
+        parts::Plane{static_cast<const int*>(layer), layer_host, L, P});
+  // acc[HS] is a register tile: one instance, 64 (every GPT-2 size's)
+  if (HS != 64 || ps < 1 || B < 1 || NH < 1 || pps < 1 || L < 1 || P < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return parts::dispatch_kinds(q_kind, kv_kind, [&](auto qt, auto kv,
+                                                    auto quant) {
+    using QT = typename decltype(qt)::type;
+    using KV = typename decltype(kv)::type;
+    full_scalar_kernel<QT, KV, decltype(quant)::value, 64>
+        <<<dim3(B, NH), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const QT*>(q), static_cast<const KV*>(k),
+            static_cast<const KV*>(v), static_cast<const float*>(ks),
+            static_cast<const float*>(vs), static_cast<const int*>(layer),
+            layer_host, static_cast<const int*>(tables),
+            static_cast<const int*>(lengths),
+            static_cast<const int*>(starts), static_cast<QT*>(out), L, P, NH,
+            ps, pps, scale);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

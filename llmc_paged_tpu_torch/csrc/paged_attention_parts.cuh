@@ -1,7 +1,8 @@
 // Flash-decode "parts" over a paged KV pool, for Hopper (sm_90a): the one
 // template behind the single-query kernel (paged_attention.cu, QTILE = 1),
-// the multi-query kernel (paged_attention_mq.cu, QTILE = 4) and, with NORM,
-// the normalized grid kernel (paged_attention_grid.cu, QTILE = 1).
+// the multi-query kernel (paged_attention_mq.cu, QTILE = 4), with NORM the
+// normalized grid kernel (paged_attention_grid.cu, QTILE = 1) and, with
+// NORM and PLANE, the kernel lab's full-pool kernel (lab_full_pool.cu).
 //
 // Contract (the JAX package's parts contract): for each row b, query j and
 // head h, attention over the row's live tokens [start, len) read through
@@ -40,6 +41,14 @@
 // when M = NEG_INF adds nothing). int8 K/V convert to f32 by byte
 // permutes and one exact subtraction, not by the quarter-rate
 // integer-to-float instruction.
+//
+// PLANE (compiled out of every other instance): the pages are one plane of
+// a stacked (L, P, NH, HS, ps) pool, scales (L, P, NH, ps). The layer is
+// read from device memory (or given as a host int) and clamped to [0, L);
+// the plane base, layer * P pages, is 64-bit; each live table entry is
+// clamped to [0, P), so a bad one cannot read outside the pool; and int8
+// scales multiply K and V before the dots (the full-pool contract), a
+// 16-byte vector of the group's 4 token scales.
 //
 // Vector loads need a page size and pool alignment of 4 elements (the
 // parts wrappers check both, the launch refuses ps % 4 != 0; the grid
@@ -147,8 +156,15 @@ __device__ __forceinline__ float group_reduce(const float (&s)[VEC], int dg) {
 template <typename QT, bool NORM>
 using AccOut = std::conditional_t<NORM, QT, float>;
 
+// the plane of a stacked pool that a PLANE instance reads: the layer in
+// device memory, or layer_host where layer is null
+struct Plane {
+  const int* layer;
+  int layer_host, L, P;
+};
+
 template <typename QT, typename KV, bool QUANT, int HS, int QTILE,
-          int WARPS, bool NORM = false>
+          int WARPS, bool NORM = false, bool PLANE = false>
 __global__ void __launch_bounds__(WARPS * 32)
 parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
              const KV* __restrict__ v_pages,
@@ -158,7 +174,7 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
              const int* __restrict__ starts,
              AccOut<QT, NORM>* __restrict__ acc_out,
              float* __restrict__ m_out, float* __restrict__ l_out, int KQ,
-             int NH, int ps, int pps, float scale) {
+             int NH, int ps, int pps, float scale, Plane pl) {
   constexpr int THREADS = WARPS * 32;
   constexpr int DPL = HS / GROUP;       // head dims a lane owns
   // V is loaded with K, except for f32 pools under a query tile, where
@@ -179,6 +195,10 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
   const int start = max(starts[b], 0);
   const int lo = start & ~(VEC - 1);
   const int nchunks = start < hi ? (hi - lo + CHUNK - 1) / CHUNK : 0;
+  size_t plane = 0;                     // pages before the layer's plane
+  if constexpr (PLANE)
+    plane = (size_t)min(max(pl.layer ? __ldg(pl.layer) : pl.layer_host, 0),
+                        pl.L - 1) * pl.P;
 
   for (int e = threadIdx.x; e < QTILE * HS; e += THREADS) {
     const int j = e / HS, d = e - j * HS;
@@ -203,9 +223,15 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
     VT kr[DPL], vr[DPL];
     size_t vrow = 0;
     float ksc = 1.f, vsc = 1.f;
+    float4 ks4, vs4;                      // PLANE: the group's token scales
     if (live) {
       const int pidx = pos0 / ps, t = pos0 - pidx * ps;
-      const size_t head = (size_t)tables[(size_t)b * pps + pidx] * NH + h;
+      size_t head;
+      if constexpr (PLANE)
+        head = (plane + min(max(tables[(size_t)b * pps + pidx], 0),
+                            pl.P - 1)) * NH + h;
+      else
+        head = (size_t)tables[(size_t)b * pps + pidx] * NH + h;
       const size_t row = (head * HS + dg * DPL) * ps + t;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
@@ -213,13 +239,18 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
         if (EARLY_V) vr[i] = load_vec(v_pages + row + (size_t)i * ps);
       }
       if (!EARLY_V) vrow = row;
-      if (QUANT) {
+      if constexpr (QUANT && PLANE) {
+        ks4 = __ldg(reinterpret_cast<const float4*>(k_scale + head * ps + t));
+        vs4 = __ldg(reinterpret_cast<const float4*>(v_scale + head * ps + t));
+      } else if (QUANT) {
         ksc = __ldg(k_scale + head * ps + t + dg);
         vsc = __ldg(v_scale + head * ps + t + dg);
       }
     } else {
 #pragma unroll
       for (int i = 0; i < DPL; ++i) kr[i] = vr[i] = VT{};
+      if constexpr (QUANT && PLANE)
+        ks4 = vs4 = make_float4(1.f, 1.f, 1.f, 1.f);
     }
     const int pos = pos0 + dg;                    // the token this lane scores
     const bool valid = live && pos >= start && pos < hi;
@@ -239,7 +270,10 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
         q4[j] = reinterpret_cast<const float4*>(q_s[j][dg])[i4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float4 kf = to_f32x4(kr[4 * i4 + u]);
+        float4 kf = to_f32x4(kr[4 * i4 + u]);
+        if constexpr (QUANT && PLANE)      // dequantize before the dot
+          kf = make_float4(kf.x * ks4.x, kf.y * ks4.y, kf.z * ks4.z,
+                           kf.w * ks4.w);
 #pragma unroll
         for (int j = 0; j < QTILE; ++j) {
           const float qq = component(q4[j], u);
@@ -254,13 +288,13 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
 #pragma unroll
     for (int j = 0; j < QTILE; ++j) {
       float sc = group_reduce(s[j], dg) * scale;
-      if (QUANT) sc = sc * ksc;
+      if (QUANT && !PLANE) sc = sc * ksc;
       if (!valid) sc = NEG_INF;
       const float m_new = fmaxf(m[j], warp_max(sc));
       const float p = sc > NEG_INF * 0.5f ? expf(sc - m_new) : 0.f;
       alpha[j] = expf(m[j] - m_new);
       l[j] = l[j] * alpha[j] + p;           // l takes p before the V scale
-      pv[j] = QUANT ? p * vsc : p;
+      pv[j] = QUANT && !PLANE ? p * vsc : p;
       m[j] = m_new;
     }
     if (!EARLY_V && live) {
@@ -277,7 +311,10 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
         pg[j][k] = __shfl_sync(FULL, pv[j], (lane & ~(GROUP - 1)) + k);
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
-      const float4 vf = to_f32x4(vr[i]);
+      float4 vf = to_f32x4(vr[i]);
+      if constexpr (QUANT && PLANE)
+        vf = make_float4(vf.x * vs4.x, vf.y * vs4.y, vf.z * vs4.z,
+                         vf.w * vs4.w);
 #pragma unroll
       for (int j = 0; j < QTILE; ++j)
         acc[j][i] = acc[j][i] * alpha[j] + pg[j][0] * vf.x + pg[j][1] * vf.y +
@@ -336,17 +373,19 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
 // the normalized (B, KQ, NH, HS) output in q's dtype and m, l are unused.
 // Returns cudaGetLastError() after the launch; an unsupported head size or
 // page size returns cudaErrorInvalidValue without launching.
-template <typename QT, typename KV, bool QUANT, int QTILE, bool NORM>
+template <typename QT, typename KV, bool QUANT, int QTILE, bool NORM,
+          bool PLANE>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          const void* ks, const void* vs, const void* tables,
                          const void* lengths, const void* starts, void* acc,
                          void* m, void* l, int B, int KQ, int NH, int HS,
-                         int ps, int pps, float scale, cudaStream_t stream) {
+                         int ps, int pps, float scale, cudaStream_t stream,
+                         Plane pl) {
   // the smem q tile and acc are sized by the head size: one instance a
   // head size, 64 (every GPT-2 size's); another is one more case here and
   // in the wrapper
   if (HS != 64 || ps < VEC || ps % VEC != 0 || B < 1 || KQ < 1 || NH < 1 ||
-      pps < 1)
+      pps < 1 || (PLANE && (pl.L < 1 || pl.P < 1)))
     return cudaErrorInvalidValue;
   const dim3 grid(B, NH, (KQ + QTILE - 1) / QTILE);
   const auto args = [&](auto kern, int warps) {
@@ -356,7 +395,7 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
         static_cast<const float*>(vs), static_cast<const int*>(tables),
         static_cast<const int*>(lengths), static_cast<const int*>(starts),
         static_cast<AccOut<QT, NORM>*>(acc), static_cast<float*>(m),
-        static_cast<float*>(l), KQ, NH, ps, pps, scale);
+        static_cast<float*>(l), KQ, NH, ps, pps, scale, pl);
   };
   // Several query tiles make many blocks of up to 255 registers a thread:
   // one 8-warp block fits an SM and idles through its merge, where two
@@ -366,11 +405,11 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   // serving lengths.
   if constexpr (QTILE > 1) {
     if (KQ > QTILE) {
-      args(parts_kernel<QT, KV, QUANT, 64, QTILE, 4, NORM>, 4);
+      args(parts_kernel<QT, KV, QUANT, 64, QTILE, 4, NORM, PLANE>, 4);
       return cudaGetLastError();
     }
   }
-  args(parts_kernel<QT, KV, QUANT, 64, QTILE, 8, NORM>, 8);
+  args(parts_kernel<QT, KV, QUANT, 64, QTILE, 8, NORM, PLANE>, 8);
   return cudaGetLastError();
 }
 
@@ -394,19 +433,20 @@ int dispatch_kinds(int q_kind, int kv_kind, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// One launch of the template for the element kinds (dispatch_kinds).
-template <int QTILE, bool NORM = false>
+// One launch of the template for the element kinds (dispatch_kinds);
+// `pl` is read by PLANE instances only.
+template <int QTILE, bool NORM = false, bool PLANE = false>
 int launch(int q_kind, int kv_kind, const void* q, const void* k,
            const void* v, const void* ks, const void* vs, const void* tables,
            const void* lengths, const void* starts, void* acc, void* m,
            void* l, int B, int KQ, int NH, int HS, int ps, int pps,
-           float scale, void* stream) {
+           float scale, void* stream, Plane pl = Plane{}) {
   return dispatch_kinds(q_kind, kv_kind, [&](auto qt, auto kv, auto quant) {
     return static_cast<int>(
         launch_typed<typename decltype(qt)::type, typename decltype(kv)::type,
-                     decltype(quant)::value, QTILE, NORM>(
+                     decltype(quant)::value, QTILE, NORM, PLANE>(
             q, k, v, ks, vs, tables, lengths, starts, acc, m, l, B, KQ, NH,
-            HS, ps, pps, scale, static_cast<cudaStream_t>(stream)));
+            HS, ps, pps, scale, static_cast<cudaStream_t>(stream), pl));
   });
 }
 

@@ -92,6 +92,28 @@ def int8_matmul_ref(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     return int8_linear(x, wq, scale, bf16_compute=bf16_compute)
 
 
+def split_bf16x3(x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain mirror of the CUDA kernel's fp32-mode split of x into three
+    bf16 terms by truncation: hi = the top 16 bits of x, mid = the top 16
+    bits of x - hi, lo = x - hi - mid. Each f32 subtraction is exact, and
+    hi + mid + lo == x exactly wherever x's lowest bit lies on the bf16
+    grid (every finite |x| >= 2^-110); below that the error is under
+    2^-133. Truncation, not rounding: the largest f32 rounds to infinity
+    in bf16. The kernel multiplies each term by the int8 weight on the
+    tensor cores (each product exact in f32). No path on the card calls
+    this; the tests check the split with it."""
+    def top(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    x = x.float()
+    hi = top(x)
+    r = x - hi
+    mid = top(r)
+    lo = top(r - mid)
+    return hi.bfloat16(), mid.bfloat16(), lo.bfloat16()
+
+
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                 bf16_compute: bool = True) -> torch.Tensor:
     """Fused dequant matmul: x (B, IC) f32/bf16 × wq (OC, IC) int8 with

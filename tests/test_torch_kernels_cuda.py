@@ -381,27 +381,20 @@ def _within_bf16_ulp(got, ref):
     return bool(((g - r).abs() <= ulp + 1e-6).all())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("xd", ["float32", "bfloat16"])
-@pytest.mark.parametrize("IC", [64, 70, 768, 6400])
-@pytest.mark.parametrize("OC", [1, 96, 2304])
-@pytest.mark.parametrize("B", [1, 8, 256])
-def test_int8_matmul_matches_plain_on_the_card(cuda, B, OC, IC, xd):  # noqa: F811
-    """The int8 kernel vs its plain version in both compute modes: IC 70
-    takes the byte path (rows not 16-byte aligned), 64, 768 and 6400 the
-    16-byte vectors, and 6400 (the 1.5B fcproj width, above the kernel's
-    2048-column chunk) stages x chunk by chunk; OC 1 and 96 leave a
-    block's channels partly empty, B 1 and 256 its rows. Tolerance 1e-5
-    rel + 1e-5·max|ref| abs: f32 sums in another order."""
+def _int8_matmul_check(cuda, B, OC, IC, xd, x=None, modes=(True, False)):
+    """int8_matmul vs int8_matmul_ref in the given compute modes, one
+    launch each; x (B, IC) f32 numpy, or standard normal from a seed."""
     from llmc_paged_tpu_torch.ops import int8 as Q
     assert not torch.backends.cuda.matmul.allow_tf32
     rng = np.random.default_rng(B * 7 + OC + IC)
-    x = torch.from_numpy(rng.standard_normal((B, IC)).astype(np.float32))
+    if x is None:
+        x = rng.standard_normal((B, IC)).astype(np.float32)
+    x = torch.from_numpy(x)
     w = torch.from_numpy((0.05 * rng.standard_normal((OC, IC)))
                          .astype(np.float32))
     wq, s = Q.quantize_per_row(w)
     x, wq, s = x.to(cuda).to(getattr(torch, xd)), wq.to(cuda), s.to(cuda)
-    for bf16 in (True, False):
+    for bf16 in modes:
         key = "int8_matmul_bf16" if bf16 else "int8_matmul_fp32"
         before = Q.LAUNCHES[key]
         got = Q.int8_matmul(x, wq, s, bf16_compute=bf16)
@@ -411,6 +404,60 @@ def test_int8_matmul_matches_plain_on_the_card(cuda, B, OC, IC, xd):  # noqa: F8
         assert got.dtype == torch.float32 and got.shape == (B, OC)
         tol = 1e-5 * float(ref.abs().max())
         torch.testing.assert_close(got, ref, atol=tol, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("IC", [16, 64, 70, 768, 6400])
+@pytest.mark.parametrize("OC", [1, 96, 2304])
+@pytest.mark.parametrize("B", [1, 8, 9, 64, 256])
+def test_int8_matmul_matches_plain_on_the_card(cuda, B, OC, IC, xd):  # noqa: F811
+    """The int8 kernel vs its plain version in both compute modes, over
+    the shapes its tile rules split on: IC 70 takes the scalar path (rows
+    not 16-byte aligned), 16 and 64 one 64-column step (16 a partly
+    empty one), 768 several, and 6400 (the 1.5B fcproj width) a split of
+    IC over a block's warps; OC 1 and 96 leave a block's channels partly
+    empty; B 1 a partly empty n8 tile, 8 a full one, 9, 64 and 256 the
+    32-row prefill tiles (9 partly empty). Tolerance 1e-5 rel +
+    1e-5·max|ref| abs: f32 sums in another order."""
+    _int8_matmul_check(cuda, B, OC, IC, xd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xd", ["float32", "bfloat16"])
+def test_int8_matmul_lm_head_on_the_card(cuda, xd):  # noqa: F811
+    """The 124M lm_head shape (8, 51200, 768): the 32-channel decode
+    tiles, at the same tolerance."""
+    _int8_matmul_check(cuda, 8, 51200, 768, xd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("IC,bf16", [(2048, False), (2432, False),
+                                     (7168, True), (7232, True)])
+def test_int8_matmul_decode_tile_rule_on_the_card(cuda, IC, bf16):  # noqa: F811
+    """Decode rows at the least OC that takes 32-channel tiles (64 a
+    streaming multiprocessor), on both sides of the 112 KB of staged x
+    fragments: IC 2048 (fp32 mode) and 7168 (bf16 mode) stage x, 2432 and
+    7232 do not and take the 16-channel tiles."""
+    OC = 64 * torch.cuda.get_device_properties(0).multi_processor_count
+    _int8_matmul_check(cuda, 8, OC, IC, "float32", modes=(bf16,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,OC,IC", [(8, 2304, 768), (256, 3072, 768),
+                                     (8, 1664, 6400)])
+def test_int8_matmul_fp32_split_on_the_card(cuda, B, OC, IC):  # noqa: F811
+    """The fp32 mode's three-term split on x that holds magnitudes from
+    1e-30 to 1e30 in every row, beside values exact in bf16 (whose mid
+    and lo terms are zero), against the f32 product at the same
+    tolerance."""
+    rng = np.random.default_rng(B + OC + IC)
+    mag = 10.0 ** rng.uniform(-30, 30, (B, IC))
+    x = (rng.choice([-1.0, 1.0], (B, IC)) * mag).astype(np.float32)
+    exact = rng.random((B, IC)) < 0.5
+    x[exact] = torch.from_numpy(rng.standard_normal(int(exact.sum()))
+                                .astype(np.float32)).bfloat16().float().numpy()
+    _int8_matmul_check(cuda, B, OC, IC, "float32", x=x, modes=(False,))
 
 
 @pytest.mark.cuda
@@ -571,11 +618,12 @@ def _full_close(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("qd", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("ps", [8, 32, 128])
+@pytest.mark.parametrize("ps", [8, 30, 32, 128])
 def test_full_pool_kernel_matches_plain_on_the_card(cuda, ps, kv, qd):  # noqa: F811
     """The full-pool kernel vs its plain version on every plane, the
     layer as a (1,) int32 tensor on the card and as a host int. The
-    zero-length and start >= length rows are exact zeros."""
+    zero-length and start >= length rows are exact zeros. ps 30 takes
+    the scalar path, the others the parts template's plane instance."""
     from llmc_paged_tpu_torch.ops.dev import lab_full_pool as FP
     q, fpool, qpool, tables, lengths, starts = _full_case(ps, seed=ps + 1)
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -657,6 +705,40 @@ def test_full_pool_kernel_offsets_past_32_bits(cuda, kv):  # noqa: F811
                                         .max())
     del k, v
     torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+@pytest.mark.parametrize("ps", [30, 32])
+def test_full_pool_kernel_clamps_entries_and_layers(cuda, ps, kv):  # noqa: F811
+    """Live table entries of -1 and P read pages 0 and P - 1, a layer of
+    -1 or L on the card reads plane 0 or L - 1, and a start below -ps
+    reads from position 0, with no fault: the kernel's clamps against
+    the plain version on the clamped indices, on both paths (ps 30
+    scalar, ps 32 the plane instance)."""
+    from llmc_paged_tpu_torch.ops.dev import lab_full_pool as FP
+    q, fpool, qpool, tables, lengths, starts = _full_case(ps, seed=3)
+    L, P = fpool[0].shape[:2]
+    tables[0, 1], tables[4, 3] = -1, P       # live entries of rows 0 and 4
+    starts[5] = -2 * ps - 1                  # row 5 (length 1) from 0
+    tq = torch.from_numpy(q).to(cuda)
+    idx = [torch.from_numpy(a).to(cuda) for a in (tables, lengths, starts)]
+    if kv == "int8":
+        pool = [torch.from_numpy(a).to(cuda) for a in qpool]
+        fn, ref_fn = (FP.paged_decode_attention_quant_full,
+                      FP.paged_decode_attention_quant_full_ref)
+        tq = tq.bfloat16()
+    else:
+        pool = [torch.from_numpy(a).to(cuda) for a in fpool]
+        fn, ref_fn = (FP.paged_decode_attention_full,
+                      FP.paged_decode_attention_full_ref)
+    for layer, plane in ((-1, 0), (L, L - 1), (1, 1)):
+        got = fn(tq, *pool, torch.tensor([layer], dtype=torch.int32,
+                                         device=cuda), *idx)
+        torch.cuda.synchronize()
+        ref = ref_fn(tq, *pool, plane, *idx)
+        assert _full_close(got, ref), (layer, float(
+            (got.float() - ref.float()).abs().max()))
 
 
 @pytest.mark.cuda
