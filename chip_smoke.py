@@ -64,8 +64,11 @@ Phases (any failed check raises, and the script exits non-zero):
      each of those kernels' time and its plain version's from the
      sweeps, at some of the lab's shapes, beside its bound and one
      PyTorch call of the same function (library_ms), flatwide beside the
-     parts kernel and the full-pool kernel beside the grid kernel on the
-     same tensors;
+     parts kernel (at the 124M and 1.5B head counts) and the full-pool
+     kernel beside the grid kernel on the same tensors; the launch floor
+     under the same timer (an empty kernel queued back to back), the
+     softmax cluster size the rule picks at each lab shape, and softmax
+     at clusters of 1, 4, 8 and 16 blocks at (8, 50304);
  12. the decode-step probe (ops/dev/probe_decode.py main, in process):
      every suite at --model 124m, then the GEMV and kernel suites at
      --model 1558m; one log line a suite with its seconds (the full
@@ -759,6 +762,10 @@ LAB_ITERS = 20
 # and its library call; the JSON line takes the last
 INT8_TIMED = ((8, 2304, 768), (256, 3072, 768), (8, 51200, 768))
 FLATWIDE_HEADLINE = (8, 12, 64, 28, 128, 3)     # phase 3's decode shape
+FLATWIDE_1558M = (8, 25, 64, 28, 128, 3)        # the 1.5B head count
+# the softmax cluster sizes timed against each other at (8, 50304) (the
+# rule picks 8 there)
+SOFTMAX_CLUSTERS = (1, 4, 8, 16)
 # the 124M decode shape over a 12-layer stacked pool (lab_full_pool)
 FULL_POOL_HEADLINE = (8, 12, 64, 12, 28, 128, 3)
 LabKernel = collections.namedtuple(
@@ -781,16 +788,16 @@ LAB_KERNELS = {
         ((8, 768), (8192, 768))),
     "softmax_rows": LabKernel(
         "softmax.cu", "llmc_paged_tpu/ops/dev/bench_softmax.py:27",
-        "bench_softmax", "v1_cuda_row_in_smem", "v0_max_exp_sum (plain)",
-        ((8, 50304),)),
+        "bench_softmax", "v1_cuda_cluster_row", "v0_max_exp_sum (plain)",
+        ((64, 50304), (8, 51200), (8, 50304))),
     "flatwide_parts": LabKernel(
         "lab_flatwide.cu", "llmc_paged_tpu/ops/dev/lab_flatwide.py:57",
         "lab_flatwide", "v2_cuda_flatwide", "v0_gather_ref (naive)",
-        (FLATWIDE_HEADLINE + ("f32",),)),
+        (FLATWIDE_1558M + ("f32",), FLATWIDE_HEADLINE + ("f32",))),
     "flatwide_quant_parts": LabKernel(
         "lab_flatwide.cu", "llmc_paged_tpu/ops/dev/lab_flatwide.py:57",
         "lab_flatwide", "v2_cuda_flatwide", "v0_gather_ref (naive)",
-        (FLATWIDE_HEADLINE + ("int8",),)),
+        (FLATWIDE_1558M + ("int8",), FLATWIDE_HEADLINE + ("int8",))),
     "paged_decode_attention_full": LabKernel(
         "lab_full_pool.cu", "llmc_paged_tpu/ops/dev/lab_full_pool.py:65",
         "lab_full_pool", "v2_cuda_full_pool", "v0_gather_ref (naive)",
@@ -992,7 +999,41 @@ def phase_lab_times(torch, records, device):
                 f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
                 f"({nbytes} B, {ops} ops){beside}")
             out[key] = t
+    log_lab_floor_and_clusters(torch, device)
     return out
+
+
+def log_lab_floor_and_clusters(torch, device):
+    """The launch floor under the lab's timer (an empty sleep kernel,
+    queued back to back behind the timer's sleep as every lab call is),
+    the cluster size softmax_rows picks at each bench_softmax shape, and
+    its time at SOFTMAX_CLUSTERS at (8, 50304), each held against the
+    plain version at the lab's tolerance."""
+    from llmc_paged_tpu_torch.ops.dev import bench_softmax as SM
+    from llmc_paged_tpu_torch.ops.dev.harness import benchmark
+    floor = benchmark(torch.cuda._sleep, (0,), iters=LAB_ITERS,
+                      device=device)
+    log(f"  launch floor (torch.cuda._sleep(0), the lab's timer): "
+        f"{floor * 1e3:.2f} us a call")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, V in SM.CONFIGS:
+        (x,) = SM.make_args(B, V, device)
+        out = torch.empty_like(x)
+        c = SM.cluster_size(B, sms,
+                            lambda c: SM._active_clusters(x, out, V, c))
+        log(f"  softmax_rows ({B}, {V}) f32: the rule picks {c} block(s) a "
+            f"row ({B * c} blocks, {sms} SMs)")
+    (x,) = SM.make_args(8, 50304, device)
+    ref = SM.softmax_rows_ref(x)
+    cells = []
+    for c in SOFTMAX_CLUSTERS:
+        got = SM.softmax_rows(x, _cluster=c)
+        check(bool(((got - ref).abs() <= 1e-6 + 1e-5 * ref.abs()).all()),
+              f"softmax_rows at cluster {c} disagrees with its plain version")
+        ms = benchmark(lambda: SM.softmax_rows(x, _cluster=c), (),
+                       iters=LAB_ITERS, device=device)
+        cells.append(f"c={c} {ms * 1e3:.2f} us")
+    log(f"  softmax_rows (8, 50304) f32 by cluster size: {', '.join(cells)}")
 
 
 # ---- phase 12: the decode-step probe ------------------------------------------

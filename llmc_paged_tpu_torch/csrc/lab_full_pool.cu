@@ -171,21 +171,6 @@ full_scalar_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pool,
   }
 }
 
-// the template's vector path takes the call: 4-token pages, pools (and
-// int8 scales) aligned to a 4-element vector of their element kind
-bool vector_path(int kv_kind, const void* k, const void* v, const void* ks,
-                 const void* vs, int ps) {
-  const auto aligned = [](const void* p, uintptr_t n) {
-    return reinterpret_cast<uintptr_t>(p) % n == 0;
-  };
-  const uintptr_t vec = parts::VEC * (kv_kind == parts::KIND_F32    ? 4
-                                      : kv_kind == parts::KIND_BF16 ? 2
-                                                                    : 1);
-  return ps % parts::VEC == 0 && aligned(k, vec) && aligned(v, vec) &&
-         (kv_kind != parts::KIND_I8 ||
-          (aligned(ks, 4 * parts::VEC) && aligned(vs, 4 * parts::VEC)));
-}
-
 }  // namespace
 
 // Element kinds: parts::KIND_*, shared with the Python wrapper
@@ -202,7 +187,7 @@ extern "C" int paged_decode_full(int q_kind, int kv_kind, const void* q,
                                  const void* starts, void* out, int B, int L,
                                  int P, int NH, int HS, int ps, int pps,
                                  float scale, void* stream) {
-  if (vector_path(kv_kind, k, v, ks, vs, ps))
+  if (parts::vector_path(kv_kind, k, v, ks, vs, ps))
     return parts::launch<1, true, true>(
         q_kind, kv_kind, q, k, v, ks, vs, tables, lengths, starts, out,
         nullptr, nullptr, B, 1, NH, HS, ps, pps, scale, stream,

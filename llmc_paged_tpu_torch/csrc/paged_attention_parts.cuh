@@ -413,6 +413,22 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The vector kernels take a call: 4-token pages, pools (and int8 scales)
+// aligned to a 4-element vector of their element kind. The lab kernels
+// that keep a scalar kernel for the rest (lab_full_pool.cu,
+// lab_flatwide.cu) choose by it.
+inline bool vector_path(int kv_kind, const void* k, const void* v,
+                        const void* ks, const void* vs, int ps) {
+  const auto aligned = [](const void* p, uintptr_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  const uintptr_t vec = VEC * (kv_kind == KIND_F32    ? 4
+                               : kv_kind == KIND_BF16 ? 2
+                                                      : 1);
+  return ps % VEC == 0 && aligned(k, vec) && aligned(v, vec) &&
+         (kv_kind != KIND_I8 || (aligned(ks, 4 * VEC) && aligned(vs, 4 * VEC)));
+}
+
 template <typename T> struct Type { using type = T; };
 
 // Calls f(Type<QT>{}, Type<KV>{}, std::bool_constant<QUANT>{}) for the

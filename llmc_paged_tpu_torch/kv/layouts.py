@@ -27,6 +27,7 @@ from typing import List, Tuple
 
 import torch
 
+from llmc_paged_tpu_torch import resolve_device
 from llmc_paged_tpu_torch.config import GPT2Config, PageConfig
 from llmc_paged_tpu_torch.ops.int8 import quantize_rows
 
@@ -70,8 +71,10 @@ class QuantPagePool(PagePool):
 
 
 def init_pool(cfg: GPT2Config, page: PageConfig, dtype="float32",
-              device="cpu") -> PagePool:
-    """Zeroed pool for ``cfg`` and ``page`` (scales start at 1.0)."""
+              device=None) -> PagePool:
+    """Zeroed pool for ``cfg`` and ``page`` (scales start at 1.0), on
+    ``device`` (None: the card, raising without one)."""
+    device = resolve_device(device)
     dtype = _DTYPES.get(dtype, dtype)
     L = cfg.num_layers
     shape = (page.num_pages, cfg.num_heads, cfg.head_dim, page.page_size)

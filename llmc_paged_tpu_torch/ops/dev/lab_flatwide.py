@@ -9,7 +9,10 @@ numbers), and stays as the design record. The port keeps the idea on
 Hopper: ``flatwide_parts`` (``csrc/lab_flatwide.cu``) gives one block a
 (row, head), writes every live token's score to shared memory, takes ONE
 max, one exp pass and one sum, then the PV sum; no cross-row work, no
-4096-lane cap, any page size. Whether the design pays on this card,
+4096-lane cap, any page size. Its K and V loads are the parts template's
+(8 warps on 32-token chunks, 4 tokens x 16 head dims a lane as vectors);
+page sizes that are not a multiple of 4, and unaligned pools, take a
+scalar kernel in the same source. Whether the design pays on this card,
 against the online-softmax parts kernel (``csrc/paged_attention.cu``)
 on the same tensors, is what this lab measures.
 
@@ -39,14 +42,17 @@ from llmc_paged_tpu_torch.ops.paged_attention import (
 # launches of the CUDA kernel, by pool kind (plain ints; reset by callers)
 LAUNCHES = {"flatwide_parts": 0, "flatwide_quant_parts": 0}
 HEAD_DIMS = (64,)          # the .cu's register tile (every GPT-2 size)
-_WARPS = 4
+_WARPS = 8                 # the vector kernel's (the scalar one has 4)
+_GROUP, _VEC = 4, 4        # lanes a token group, tokens a lane vector
 _MAX_SMEM = 232448         # Hopper's opt-in shared memory a block
 
 
 def smem_bytes(HS: int, ps: int, pps: int) -> int:
-    """Shared memory of one block: the scores of up to pps*ps tokens, q,
-    the warps' acc rows and the reduction slots, all f32."""
-    return 4 * (pps * ps + HS + _WARPS * HS + _WARPS)
+    """Shared memory of one block of the vector kernel (the scalar one
+    needs less): the scores of up to pps*ps tokens, q padded to 20 floats
+    a lane group, the warps' acc rows, maxima and l, all f32."""
+    return 4 * (pps * ps + _GROUP * (HS // _GROUP + _VEC) + _WARPS * HS
+                + 2 * _WARPS)
 
 
 def flatwide_parts(q, k_pages, v_pages, block_tables, lengths, starts=None,

@@ -509,22 +509,31 @@ def test_softmax_rows_matches_plain_on_the_card(cuda, B, V, xd):  # noqa: F811
         torch.testing.assert_close(got, ref, atol=1e-6, rtol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int8-qbf16"])
-@pytest.mark.parametrize("ps", [8, 32, 128])
-def test_flatwide_matches_plain_on_the_card(cuda, kv, ps):  # noqa: F811
-    """The flatwide parts kernel vs the plain parts versions on the
-    zero, ragged and windowed rows of ``_case`` (row 3: start > length).
-    Tolerance 1e-4 abs + 1e-4 rel: f32 sums in another order."""
+def _shifted(t, shift):
+    """t's values in a view ``shift`` elements into its own storage."""
+    view = torch.empty(t.numel() + shift, dtype=t.dtype,
+                       device=t.device)[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _flatwide_call(cuda, kv, case, shift=0):
+    """The flatwide parts kernel on ``case`` (numpy: q, pool, tables,
+    lengths, starts) through its wrapper, one launch counted; with
+    ``shift``, K and V are views ``shift`` elements into their storage.
+    Tolerance 1e-4 abs + 1e-4 rel against the plain parts versions (f32
+    sums in another order); returns the kernel's outputs."""
     from llmc_paged_tpu_torch.ops.dev import lab_flatwide as FW
     quant = kv.startswith("int8")
-    q, pool, tables, lengths, starts = _case(ps, quant, seed=17)
+    q, pool, tables, lengths, starts = case
     a = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
          for x in (q, *pool, tables, lengths, starts)]
     if kv == "int8-qbf16":
         a[0] = a[0].to(torch.bfloat16)
     if kv == "bfloat16":
         a[1], a[2] = a[1].to(torch.bfloat16), a[2].to(torch.bfloat16)
+    if shift:
+        a[1], a[2] = _shifted(a[1], shift), _shifted(a[2], shift)
     if quant:
         q, k, v, ks, vs, tables, lengths, starts = a
         scales, key = (ks, vs), "flatwide_quant_parts"
@@ -540,9 +549,123 @@ def test_flatwide_matches_plain_on_the_card(cuda, kv, ps):  # noqa: F811
     torch.cuda.synchronize()
     assert FW.LAUNCHES[key] == before + 1
     for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
         torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+    return got
+
+
+def _softmax_case(case):
+    """(B, V) inputs of the softmax cluster tests: 64 rows; 1, 7 and 33
+    columns (most blocks of a 16-block cluster hold none); a masked vocab
+    tail (-inf from column 50257 of 50304); bf16 at V = 50257 (rows of
+    odd b start 2 bytes past a 16-byte boundary)."""
+    B, V, dt = {"B64": (64, 50304, "float32"), "V1": (8, 1, "float32"),
+                "V7": (8, 7, "float32"), "V33": (8, 33, "bfloat16"),
+                "tail-inf": (8, 50304, "float32"),
+                "bf16-50257": (7, 50257, "bfloat16")}[case]
+    rng = np.random.default_rng(B * V)
+    x = torch.from_numpy(4 * rng.standard_normal((B, V)).astype(np.float32))
+    if case == "tail-inf":
+        x[:, 50257:] = float("-inf")
+    return x.to(getattr(torch, dt))
+
+
+def _softmax_close(got, ref, x):
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if x.dtype == torch.bfloat16:
+        assert _within_bf16_ulp(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("case", ["B64", "V1", "V7", "V33", "tail-inf",
+                                  "bf16-50257"])
+def test_softmax_rows_cluster_sizes_on_the_card(cuda, case, cluster):  # noqa: F811
+    """The cluster kernel at every cluster size the rule can pick (None:
+    the rule's own pick), forced through the wrapper's private argument,
+    vs the plain version (f32 within 1e-6 abs + 1e-5 rel, bf16 within one
+    ulp). A masked tail gives exact zeros, as the plain version does."""
+    from llmc_paged_tpu_torch.ops.dev import bench_softmax as SM
+    x = _softmax_case(case).to(cuda)
+    before = SM.LAUNCHES["softmax_rows"]
+    got = SM.softmax_rows(x, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert SM.LAUNCHES["softmax_rows"] == before + 1
+    _softmax_close(got, SM.softmax_rows_ref(x), x)
+    if case == "tail-inf":
+        assert bool((got[:, 50257:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 16])
+@pytest.mark.parametrize("xd", ["float32", "bfloat16"])
+def test_softmax_rows_unaligned_input_on_the_card(cuda, xd, cluster):  # noqa: F811
+    """x a view one element into its storage (so x and out differ in
+    alignment) takes the scalar instance; same tolerance."""
+    from llmc_paged_tpu_torch.ops.dev import bench_softmax as SM
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(4 * rng.standard_normal((8, 1000)).astype(
+        np.float32)).to(cuda).to(getattr(torch, xd))
+    x = _shifted(x, 1)
+    got = SM.softmax_rows(x, _cluster=cluster)
+    torch.cuda.synchronize()
+    _softmax_close(got, SM.softmax_rows_ref(x), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int8-qbf16"])
+@pytest.mark.parametrize("ps", [6, 8, 32, 128])
+def test_flatwide_matches_plain_on_the_card(cuda, kv, ps):  # noqa: F811
+    """The flatwide parts kernel vs the plain parts versions on the
+    zero, ragged and windowed rows of ``_case`` (row 3: start > length):
+    the vector kernel at page sizes that are a multiple of 4, the scalar
+    kernel at 6. Tolerance as in _flatwide_call."""
+    got = _flatwide_call(cuda, kv, _case(ps, kv.startswith("int8"),
+                                         seed=17))
     assert float(got[2][1].abs().max()) == 0.0     # the zero-length row
     assert bool((got[1][3] == T.NEG_INF).all())    # start > length
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int8-qbf16"])
+def test_flatwide_unaligned_pool_on_the_card(cuda, kv):  # noqa: F811
+    """K and V as views one element into their storage take the scalar
+    kernel at ps 32, and give what the aligned pools give through the
+    vector kernel (both within _flatwide_call's tolerance)."""
+    case = _case(32, kv.startswith("int8"), seed=19)
+    got = _flatwide_call(cuda, kv, case, shift=1)
+    want = _flatwide_call(cuda, kv, case)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    assert float(got[2][1].abs().max()) == 0.0
+    assert bool((got[1][3] == T.NEG_INF).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "int8-qbf16"])
+def test_flatwide_at_the_large_head_count_on_the_card(cuda, kv):  # noqa: F811
+    """The 1.5B head count (NH = 25) at the lab's decode shape (B = 8,
+    ps 128, 3 pages a row, lengths 1-384), one row windowed inside a
+    4-token group and one past its length."""
+    rng = np.random.default_rng(25)
+    B, nh, ps, pps, P = 8, 25, 128, 3, 28
+    q = rng.standard_normal((B, nh, HS)).astype(np.float32)
+    if kv.startswith("int8"):
+        pool = tuple(rng.integers(-127, 128, (P, nh, HS, ps)).astype(np.int8)
+                     for _ in range(2))
+        pool += tuple(rng.uniform(1e-3, 2e-2, (P, nh, ps)).astype(np.float32)
+                      for _ in range(2))
+    else:
+        pool = tuple(rng.standard_normal((P, nh, HS, ps)).astype(np.float32)
+                     for _ in range(2))
+    tables = rng.permutation(P)[: B * pps].reshape(B, pps).astype(np.int32)
+    lengths = rng.integers(1, pps * ps + 1, B).astype(np.int32)
+    lengths[:2] = (300, 17)
+    starts = np.array([131, 18, 0, 0, 0, 0, 0, 0], np.int32)
+    got = _flatwide_call(cuda, kv, (q, pool, tables, lengths, starts))
+    assert bool((got[1][1] == T.NEG_INF).all())
 
 
 @pytest.mark.cuda
@@ -566,6 +689,8 @@ def test_lab_kernels_reject_what_they_do_not_take(cuda):  # noqa: F811
                           torch.zeros(4096, device=cuda))
     with pytest.raises(ValueError, match="exceeds"):
         SM.softmax_rows(torch.zeros(1, 60000, device=cuda))
+    with pytest.raises(ValueError, match="cluster size"):
+        SM.softmax_rows(torch.zeros(1, 64, device=cuda), _cluster=3)
     q, pool, tables, lengths, starts = _case(8, False)
     q, k, v, tables, lengths, starts = (
         torch.from_numpy(x).to(cuda)

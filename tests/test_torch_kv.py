@@ -190,15 +190,26 @@ def test_init_pool_shapes():
     from llmc_paged_tpu_torch.config import PageConfig
     cfg = port_cfg()
     page = PageConfig(page_size=PS, num_pages=P)
-    pool = T.init_pool(cfg, page, "int8")
+    pool = T.init_pool(cfg, page, "int8", device="cpu")
     assert isinstance(pool, T.QuantPagePool)
     assert pool.num_layers == cfg.num_layers and pool.num_pages == P
     assert pool.page_size == PS
     assert pool.k[0].shape == (P, cfg.num_heads, cfg.head_dim, PS)
     assert pool.k_scale[0].shape == (P, cfg.num_heads, PS)
     assert bool((pool.k_scale[0] == 1).all())
-    fpool = T.init_pool(cfg, page, "bfloat16")
+    fpool = T.init_pool(cfg, page, "bfloat16", device="cpu")
     assert fpool.k[1].dtype == torch.bfloat16 and len(fpool.layer(0)) == 2
+
+
+def test_init_pool_defaults_to_the_card():
+    """init_pool without a device puts the pool on the card, and raises
+    where there is none (no silent CPU pool)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from test_torch_common import port_cfg
+    from llmc_paged_tpu_torch.config import PageConfig
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_pool(port_cfg(), PageConfig(page_size=PS, num_pages=P))
 
 
 def _state(m):

@@ -107,6 +107,29 @@ def test_softmax_rows_matches_the_jax_kernel(B, V):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("B,sms,full_above,want", [
+    (1, 132, None, 8), (8, 132, None, 8), (64, 132, None, 4),
+    (132, 132, None, 1), (1000, 132, None, 1), (17, 132, None, 8),
+    (33, 132, None, 4), (64, 114, None, 2), (8, 132, 4, 4), (64, 132, 2, 2),
+    (8, 132, 0, 1), (3, 16, None, 8),
+])
+def test_softmax_cluster_size_rule(B, sms, full_above, want):
+    """The blocks softmax_rows splits a row over: the smallest power of
+    two c with B * c >= the SM count, at most 8 (RULE_CLUSTER), halved
+    while the card holds no cluster of c blocks (``full_above``: the
+    largest c the occupancy query admits; None, every c)."""
+    asked = []
+
+    def active(c):
+        asked.append(c)
+        return 0 if full_above is not None and c > full_above else 3
+
+    assert bench_softmax.RULE_CLUSTER == 8
+    assert bench_softmax.cluster_size(B, sms, active) == want
+    # the query is asked only about sizes above 1, largest first
+    assert asked == sorted(asked, reverse=True) and 1 not in asked
+
+
 @pytest.mark.parametrize("quant", [False, True])
 def test_flatwide_matches_the_jax_kernel(quant):
     """flatwide_parts (plain route) against the JAX flatwide kernel in

@@ -95,7 +95,7 @@ def _run_paged(jcfg, tcfg, jp, tp, jpp, tpp, kv_dtype, window, K=5):
     page_t = TPageConfig(page_size=PS, num_pages=NP, pages_per_seq=PPS,
                          kv_dtype=kv_dtype)
     jpool = j_init_pool(jcfg, page_j, dtype=kv_dtype)
-    tpool = t_init_pool(tcfg, page_t, dtype=kv_dtype)
+    tpool = t_init_pool(tcfg, page_t, dtype=kv_dtype, device="cpu")
     xs, valid, lens, tables = _prefill_inputs()
     pos = np.tile(np.arange(xs.shape[1], dtype=np.int32), (3, 1))
     pg, sl = _coords(tables, pos, valid)

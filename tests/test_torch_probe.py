@@ -92,7 +92,7 @@ def test_unrolled_chunk_tokens_equal_both_chunks():
                                   jnp.asarray(sl), jpool, jcfg,
                                   last_pos=jnp.asarray(lens - 1))
     tpool = init_pool(tcfg, PageConfig(page_size=PS, num_pages=NP,
-                                       pages_per_seq=PPS))
+                                       pages_per_seq=PPS), device="cpu")
     _, tpool = TGP.prefill_paged(tp, torch.from_numpy(xs),
                                  torch.from_numpy(pg), torch.from_numpy(sl),
                                  tpool, tcfg,

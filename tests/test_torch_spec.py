@@ -47,7 +47,8 @@ def _pools(jcfg, tcfg, kv_dtype):
     kw = dict(page_size=PS, num_pages=NP, pages_per_seq=PPS,
               kv_dtype=kv_dtype)
     return (j_init_pool(jcfg, JPageConfig(**kw), dtype=kv_dtype),
-            t_init_pool(tcfg, TPageConfig(**kw), dtype=kv_dtype))
+            t_init_pool(tcfg, TPageConfig(**kw), dtype=kv_dtype,
+                        device="cpu"))
 
 
 def _layers(pool):
