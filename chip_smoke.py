@@ -75,8 +75,26 @@ Phases (any failed check raises, and the script exits non-zero):
      tables go to build/chip_smoke_probe.txt); the paged-attention
      launches equal the calls the probe made; then one torch.profiler
      trace of the grid kernel's CLI-shape call from phase 3 against the
-     timer (last, so that no host-timed phase follows a profiler
-     session).
+     timer, and the CLI's --profile on a tiny checkpoint (its Chrome
+     trace holds CPU operator events and the card's parts kernels; last,
+     so that no host-timed phase follows a profiler session).
+ 13. (run after phase 10, before phases 11 and 12, so that no host-timed
+     phase follows a profiler session) the serving front on the card:
+     GPT-2 124M at full width, ps 128, max_batch 8, device sampling.
+     An fp32 engine (TF32 off) served through HttpServingFront on
+     127.0.0.1: greedy rows with logprobs, penalized greedy rows and a
+     top_k=1 row give exactly the tokens of the engine's batch run();
+     logprobs within 2e-3 of a dense forward's log_softmax; every token
+     of a top-40 row at or above its position's 40th logit (-1e-3); the
+     same seed twice gives the same streams; a stream cancelled by its
+     client's disconnect is a prefix of its uncancelled stream and its
+     pages free. The int8 headline engine (int8 weights and KV, bf16
+     activations, top-k 40, temperature 0.8, chunks of 16): warmup(),
+     then 8 concurrent HTTP requests of 128 + 128 tokens (greedy with
+     logprobs, penalized, streams, per-request top_k/temperature):
+     tok/s, p50 TTFT, launches = L x chained steps, no single step;
+     host ms a chunk step of a batch run beside phase 4's greedy chain;
+     0 synchronizing CUDA calls in one bare device-sampled link.
 Every kernel time is the lab harness's: CUDA events over launches queued
 behind a sleep kernel, the median of 3 runs.
 The line before the last is a JSON object {"kernels": [...]} (fourteen
@@ -469,6 +487,45 @@ def trace_grid(torch, pa, records, n=100):
             f"timer: {rec['ms'] * 1e3:.2f} us a call); {tr[2]}"))
 
 
+def profile_cli(torch, pa):
+    """The CLI's --profile on the card: a greedy batch on a tiny
+    checkpoint; the Chrome trace it writes must hold CPU operator events
+    and the card's parts kernels. Returns (CPU events, parts kernel
+    events, parts launches)."""
+    from llmc_paged_tpu_torch import formats
+    from llmc_paged_tpu_torch.config import GPT2Config
+    from llmc_paged_tpu_torch.engine import cli
+    from llmc_paged_tpu_torch.models import gpt2
+    cfg = GPT2Config.tiny(max_seq_len=256, vocab_size=512, channels=128,
+                          num_heads=2)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(10)
+    params = gpt2.init_params(cfg, g)
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        ckpt, data = os.path.join(d, "tiny.bin"), os.path.join(d, "tok.bin")
+        formats.write_checkpoint(ckpt, cfg, {k: v.cpu().numpy()
+                                             for k, v in params.items()})
+        formats.write_token_stream(data, torch.randint(
+            0, cfg.vocab_size, (400,), generator=g,
+            device="cuda").int().cpu().numpy())
+        reset_counts(pa)
+        run_cli(cli, [f"--checkpoint={ckpt}", f"--data={data}", "--batch=2",
+                      "--prompt-size=16", "--max-new=24", "--greedy",
+                      "--pages-per-seq=8", f"--profile={d}/prof"])
+        with open(os.path.join(d, "prof", "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    cpu = sum(e.get("cat") == "cpu_op" for e in events)
+    parts = sum(e.get("cat") == "kernel" and "parts_kernel" in e["name"]
+                for e in events)
+    launches = pa.LAUNCHES["paged_decode_attention_parts"]
+    check(cpu > 0 and parts > 0 and launches > 0,
+          f"cli --profile: {cpu} CPU operator events, {parts} parts kernel "
+          f"events, {launches} parts launches in the trace's run")
+    return cpu, parts, launches
+
+
 def trace_us(torch, fn, n):
     """The device kernels that n calls of fn launch, from one
     torch.profiler trace: (launches, mean µs a kernel, names); None when
@@ -589,25 +646,37 @@ def prompts_for(torch, n, lengths, V, seed, device):
             for ln in lengths[:n]]
 
 
+def make_engine(params, cfg, *, kv_dtype, param_dtype, num_pages,
+                use_kernel=True, device="cuda", pps=3, prefix=False,
+                **econf_kw):
+    """An engine at ps 128, max_batch 8, chunks of 16; "int8" adds bf16
+    activations and the bf16 prefill copy (the headline configuration).
+    ``econf_kw`` overrides EngineConfig fields (greedy by default)."""
+    from llmc_paged_tpu_torch.config import EngineConfig, PageConfig
+    from llmc_paged_tpu_torch.engine.engine import InferenceEngine
+    quant = param_dtype == "int8"
+    page = PageConfig(page_size=128, num_pages=num_pages, max_seqs=8,
+                      pages_per_seq=pps, kv_dtype=kv_dtype,
+                      prefix_cache=prefix)
+    econf = EngineConfig(**{**dict(
+        cache_mode="paged", page=page, max_batch=8, greedy=True,
+        decode_chunk=16, param_dtype=param_dtype,
+        activation_dtype="bfloat16" if quant else "float32",
+        prefill_param_dtype="bfloat16" if quant else None,
+        spec_ngram=3), **econf_kw})
+    return InferenceEngine(params, cfg, econf, device=device,
+                           use_kernel=use_kernel)
+
+
 def serve(torch, params, cfg, *, prompts, new, kv_dtype, param_dtype,
           num_pages, use_kernel=True, max_new=None, device="cuda",
           engine=None, pps=3, spec_k=0, prefix=False):
-    from llmc_paged_tpu_torch.config import EngineConfig, PageConfig
-    from llmc_paged_tpu_torch.engine.engine import InferenceEngine
     from llmc_paged_tpu_torch.engine.scheduler import Request
     if engine is None:
-        quant = param_dtype == "int8"
-        page = PageConfig(page_size=128, num_pages=num_pages, max_seqs=8,
-                          pages_per_seq=pps, kv_dtype=kv_dtype,
-                          prefix_cache=prefix)
-        econf = EngineConfig(
-            cache_mode="paged", page=page, max_batch=8, greedy=True,
-            decode_chunk=16, param_dtype=param_dtype,
-            activation_dtype="bfloat16" if quant else "float32",
-            prefill_param_dtype="bfloat16" if quant else None,
-            spec_k=spec_k, spec_ngram=3)
-        engine = InferenceEngine(params, cfg, econf, device=device,
-                                 use_kernel=use_kernel)
+        engine = make_engine(params, cfg, kv_dtype=kv_dtype,
+                             param_dtype=param_dtype, num_pages=num_pages,
+                             use_kernel=use_kernel, device=device, pps=pps,
+                             prefix=prefix, spec_k=spec_k)
     reqs = [Request(rid=i, prompt=list(p),
                     max_new_tokens=(max_new[i] if max_new else new))
             for i, p in enumerate(prompts)]
@@ -752,6 +821,322 @@ def phase_cli(torch, pa, params32, cfg, device):
               f"modes: the streams differ: {modes}")
         log("  none, dense and paged: identical 32-token streams")
     return launches
+
+
+# ---- phase 13: the serving front ---------------------------------------------
+
+def http_post(url, payload, timeout=300):
+    """POST ``payload`` as JSON; returns (status, reply, seconds)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST")
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.monotonic() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.monotonic() - t0
+
+
+def http_stream(url, payload, timeout=300):
+    """POST a streaming request and read it to its end; returns (the
+    streamed tokens, seconds to the first token line, the final line)."""
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps({**payload, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.monotonic()
+    toks, t_first, final = [], None, None
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            obj = json.loads(line)
+            if obj.get("done"):
+                final = obj
+            else:
+                toks.extend(obj["tokens"])
+                if t_first is None:
+                    t_first = time.monotonic() - t0
+    return toks, t_first, final
+
+
+def http_disconnect(host, port, payload):
+    """POST a streaming request over a raw socket, read its first two
+    token lines (the first holds only the prefill's pick) and close the
+    connection; returns their tokens."""
+    lines = 2
+    import socket
+    body = json.dumps({**payload, "stream": True}).encode()
+    s = socket.create_connection((host, port), timeout=120)
+    s.sendall(b"POST /generate HTTP/1.1\r\nHost: smoke\r\n"
+              b"Content-Type: application/json\r\n"
+              + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    buf = b""
+    while buf.partition(b"\r\n\r\n")[2].count(b"\n") < lines:
+        chunk = s.recv(65536)
+        check(bool(chunk), f"disconnect: the stream closed before {lines} "
+                           "lines")
+        buf += chunk
+    s.close()
+    got = buf.partition(b"\r\n\r\n")[2].split(b"\n")[:lines]
+    return [t for ln in got for t in json.loads(ln)["tokens"]]
+
+
+def concurrently(fn, jobs):
+    """fn(job) for every job, each on its own thread; results in order."""
+    import threading
+    out, errs = [None] * len(jobs), []
+
+    def one(i, job):
+        try:
+            out[i] = fn(job)
+        except BaseException as e:     # re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=one, args=(i, j))
+               for i, j in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def phase_serving(torch, pa, params32, cfg, device, greedy_host_ms):
+    """Phase 13: ServingEngine and the HTTP front on the card, an fp32
+    parity engine and the int8 headline engine under device sampling.
+    Returns the quantized parts kernel's launches of the headline
+    engine's served run."""
+    from llmc_paged_tpu_torch.engine.http_server import HttpServingFront
+    from llmc_paged_tpu_torch.engine.scheduler import Request
+    from llmc_paged_tpu_torch.engine.server import ServingEngine
+    from llmc_paged_tpu_torch.models import gpt2, gpt2_paged
+    L, V = cfg.num_layers, cfg.vocab_size
+    prompts = prompts_for(torch, 8, [128] * 8, V, 8, device)
+    NEW = 48
+    # the parity requests: rows 0-3 greedy with logprobs, 4-5 penalized
+    # greedy (5 with logprobs), 6 a top_k=1 draw of row 0's prompt, 7 a
+    # top-40 draw at temperature 0.8 with logprobs
+    rows = [dict(logprobs=True)] * 4 + [
+        dict(frequency_penalty=0.5, presence_penalty=0.5),
+        dict(frequency_penalty=1.0, logprobs=True),
+        dict(greedy=False, top_k=1),
+        dict(greedy=False, top_k=40, temperature=0.8, logprobs=True)]
+    rows_prompts = prompts[:6] + [prompts[0], prompts[7]]
+
+    def batch_run(eng, new=NEW, which=range(8)):
+        done = eng.run([Request(rid=i, prompt=list(rows_prompts[i]),
+                                max_new_tokens=new, **rows[i])
+                        for i in which])
+        torch.cuda.synchronize()
+        return {r.rid: r for r in done}
+
+    # ---- fp32 parity engine -------------------------------------------
+    t0 = time.monotonic()
+    e32 = make_engine(params32, cfg, kv_dtype="float32",
+                      param_dtype="float32", num_pages=28, device=device,
+                      device_sampling=True, stream_links=2)
+    ref = batch_run(e32)
+    again = batch_run(e32)
+    check(all(again[i].generated == ref[i].generated for i in range(8)),
+          "fp32 serving: the same seed gave other streams in a second run")
+    check(ref[6].generated == ref[0].generated,
+          f"fp32 serving: top_k=1 under device sampling "
+          f"{ref[6].generated[:8]} != greedy {ref[0].generated[:8]}")
+    check(ref[7].generated != ref[0].generated,
+          "fp32 serving: the top-40 row equals the greedy row")
+    log(f"  fp32 batch runs: {e32.stats['decode_steps']} decode steps, "
+        f"single steps {e32.stats['single_steps']}, same seed -> same "
+        f"streams, top_k=1 == greedy ({time.monotonic() - t0:.1f} s)")
+    check(e32.stats["single_steps"] == 0,
+          "fp32 serving: a device-sampled batch took single-token steps")
+    with ServingEngine(e32) as srv, HttpServingFront(srv, "127.0.0.1",
+                                                     0) as front:
+        url = f"http://{front.host}:{front.port}/generate"
+        t0 = time.monotonic()
+        served = concurrently(lambda i: http_post(url, dict(
+            prompt=rows_prompts[i], max_new_tokens=NEW, **rows[i])),
+            list(range(8)))
+        t_http = time.monotonic() - t0
+        for i, (status, out, _) in enumerate(served):
+            check(status == 200, f"fp32 http row {i}: status {status} {out}"
+                  f" (serving loop: {srv._error!r})")
+            check(len(out["generated"]) == NEW
+                  and out["tokens"][:128] == rows_prompts[i],
+                  f"fp32 http row {i}: not {NEW} tokens after its prompt")
+        for i in range(7):
+            check(served[i][1]["generated"] == ref[i].generated,
+                  f"fp32 http row {i} {rows[i]}: tokens differ from the "
+                  f"batch run: {served[i][1]['generated'][:12]} vs "
+                  f"{ref[i].generated[:12]}")
+        # logprobs and sampled tokens against one dense forward each
+        lp_err, lp_http_err, slack = 0.0, 0.0, float("inf")
+        for i in (0, 1, 2, 3, 5, 7):
+            out = served[i][1]
+            seq = out["tokens"]
+            lg = gpt2.forward(e32.params, torch.tensor(
+                [seq[:-1]], dtype=torch.int32), cfg)[0].double()
+            want = torch.log_softmax(lg, -1)[127:].gather(
+                1, torch.tensor(seq[128:], device=lg.device)[:, None])[:, 0]
+            got = torch.tensor(out["logprobs"], dtype=torch.float64,
+                               device=lg.device)
+            lp_err = max(lp_err, float((got - want).abs().max()))
+            if i != 7:
+                lp_http_err = max(lp_http_err, max(
+                    abs(a - b) for a, b in zip(out["logprobs"],
+                                               ref[i].logprob_values)))
+            else:
+                kth = torch.topk(lg[127:], 40, dim=-1).values[:, -1]
+                chosen = lg[127:].gather(1, torch.tensor(
+                    seq[128:], device=lg.device)[:, None])[:, 0]
+                slack = float((chosen - kth).min())
+        log(f"  fp32 http: 8 concurrent requests in {t_http:.2f} s; rows 0-6 "
+            f"(greedy with logprobs, penalized greedy, top_k=1) equal the "
+            f"batch run; logprobs vs dense log_softmax max|d| {lp_err:.2e} "
+            f"(tol 2e-3), vs the batch run {lp_http_err:.2e}; top-40 row: "
+            f"min(logit - 40th logit) {slack:.3e} (tol -1e-3)")
+        check(lp_err <= 2e-3, f"fp32 http: logprobs off by {lp_err}")
+        check(slack >= -1e-3,
+              f"fp32 http: a sampled token lies outside the top 40 ({slack})")
+        # a stream cancelled by its client's disconnect
+        long_new = 200
+        got = http_disconnect(front.host, front.port, dict(
+            prompt=rows_prompts[1], max_new_tokens=long_new))
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            st = srv.stats()
+            if st["open_streams"] == 0 and st["running"] == 0:
+                break
+            time.sleep(0.01)
+        check(st["open_streams"] == 0 and st["running"] == 0,
+              f"disconnect: the stream was never cancelled: {st}")
+        check(st["pages_free"] == 28,
+              f"disconnect: {st['pages_free']} of 28 pages free after it")
+    uncancelled = e32.run([Request(rid=0, prompt=list(rows_prompts[1]),
+                                   max_new_tokens=long_new)])[0].generated
+    check(0 < len(got) < long_new and got == uncancelled[: len(got)],
+          f"disconnect: {len(got)} streamed tokens are not a prefix of the "
+          "uncancelled stream")
+    log(f"  fp32 disconnect: {len(got)} tokens streamed before the client "
+        f"left, a prefix of the uncancelled {long_new}; pages free "
+        f"{st['pages_free']}/28, decode tokens {st['decode_tokens']}")
+    del e32
+
+    # ---- int8 headline engine: warmup, then 8 concurrent requests -----
+    eng = make_engine(params32, cfg, kv_dtype="int8", param_dtype="int8",
+                      num_pages=28, device=device, device_sampling=True,
+                      greedy=False, top_k=40, temperature=0.8)
+    t0 = time.monotonic()
+    warm = eng.warmup()
+    t_warm = time.monotonic() - t0
+    hprompts = prompts_for(torch, 8, [128] * 8, V, 9, device)
+    kinds = [("greedy+logprobs", dict(greedy=True, logprobs=True)),
+             ("greedy+logprobs", dict(greedy=True, logprobs=True)),
+             ("penalties", dict(frequency_penalty=0.5,
+                                presence_penalty=0.3)),
+             ("penalties", dict(frequency_penalty=1.0)),
+             ("stream", dict()), ("stream", dict()),
+             ("top_k/temperature", dict(top_k=5, temperature=1.2)),
+             ("top_k/temperature", dict(top_k=200, temperature=0.6))]
+    HNEW = 128
+    reset_counts(pa)
+    with ServingEngine(eng) as srv, HttpServingFront(srv, "127.0.0.1",
+                                                     0) as front:
+        url = f"http://{front.host}:{front.port}/generate"
+
+        def job(i):
+            kind, kw = kinds[i]
+            payload = dict(prompt=hprompts[i], max_new_tokens=HNEW, **kw)
+            if kind == "stream":
+                toks, t_first, final = http_stream(url, payload)
+                return kind, toks, t_first, final
+            status, out, secs = http_post(url, payload)
+            check(status == 200, f"int8 http row {i}: {status} {out} "
+                  f"(serving loop: {srv._error!r})")
+            return kind, out["generated"], secs, out
+
+        t0 = time.monotonic()
+        results = concurrently(job, list(range(8)))
+        t_http = time.monotonic() - t0
+        live = srv.stats()
+    st = dict(eng.stats)
+    launches = dict(pa.LAUNCHES)
+    for i, (kind, toks, secs, out) in enumerate(results):
+        check(len(toks) == HNEW and all(0 <= t < V for t in toks),
+              f"int8 http row {i} ({kind}): {len(toks)} tokens")
+        if kind == "stream":
+            check(out["done"] and out["generated"] == toks,
+                  f"int8 http row {i}: the stream's lines do not "
+                  "concatenate to its final tokens")
+        if kind == "greedy+logprobs":
+            lps = out["logprobs"]
+            check(len(lps) == HNEW and all(v <= 0.0 and v == v for v in lps),
+                  f"int8 http row {i}: logprobs not {HNEW} finite values "
+                  "<= 0")
+    want = L * st["decode_steps"]
+    check(st["single_steps"] == 0 and st["decode_steps"] > 0
+          and launches["paged_decode_attention_quant_parts"] == want,
+          f"int8 http: {launches} launches and {st['single_steps']} single "
+          f"steps, want L x {st['decode_steps']} chained decode steps")
+    n_tok = sum(len(r[1]) for r in results)
+    ttft_stream = sorted(r[2] for r in results if r[0] == "stream")
+    log(f"  int8 headline: warmup {t_warm:.2f} s {warm}; 8 concurrent "
+        f"requests (2 greedy+logprobs, 2 penalized, 2 streams, 2 top_k/"
+        f"temperature), {HNEW} tokens each: {n_tok} tokens in "
+        f"{t_http:.3f} s = {n_tok / t_http:.1f} tok/s client side, engine "
+        f"decode_tok_per_s {st['decode_tok_per_s']:.1f}, p50_ttft_s "
+        f"{st['p50_ttft_s']:.4f} (queue included), stream first lines "
+        f"{', '.join(f'{t:.3f}' for t in ttft_stream)} s, decode steps "
+        f"{st['decode_steps']}, single steps {st['single_steps']}, "
+        f"launches {launches}, pages free after {live['pages_free']}")
+    # host ms per chunk step of a device-sampled chain: one batch run of
+    # the same 8 requests, beside phase 4's greedy chain
+    done = eng.run([Request(rid=i, prompt=list(hprompts[i]),
+                            max_new_tokens=HNEW, **kinds[i][1])
+                    for i in range(8)])
+    torch.cuda.synchronize()
+    sb = eng.stats
+    check(len(done) == 8 and sb["single_steps"] == 0,
+          "int8 batch run: a device-sampled batch took single steps")
+    host_ms = 1e3 * (sb["t_chain_dispatch_s"] + sb["t_materialize_s"]) \
+        / sb["decode_steps"]
+    log(f"  int8 batch run of the same requests: decode_tok_per_s "
+        f"{sb['decode_tok_per_s']:.1f}, p50_ttft_s {sb['p50_ttft_s']:.4f}, "
+        f"host per chunk step {host_ms:.2f} ms (chain dispatch "
+        f"{sb['t_chain_dispatch_s']} s + materialize "
+        f"{sb['t_materialize_s']} s over {sb['decode_steps']} steps); "
+        f"phase 4's greedy chain: {greedy_host_ms:.2f} ms")
+    # synchronizing calls in one bare device-sampled link: device
+    # carries, host coordinates, per-row arrays, penalties and logprobs
+    B8 = 8
+    pool = eng._pool_cache
+    tables = torch.arange(3 * B8, dtype=torch.int32).reshape(B8, 3)
+    pos = 128 + torch.arange(16, dtype=torch.int32)[:, None].repeat(1, B8)
+    pgs = tables.gather(1, (pos // 128).T.long()).T.contiguous()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    dev_args = dict(
+        first_tokens=torch.full((B8,), 7, device=device, dtype=torch.int32),
+        temperature=torch.full((B8,), 0.8, device=device),
+        k_arr=torch.full((B8,), 40, device=device, dtype=torch.int32),
+        greedy_rows=torch.arange(B8, device=device) < 2,
+        pen_counts=torch.zeros(B8, V, device=device, dtype=torch.int32),
+        freq_pen=torch.full((B8,), 0.5, device=device),
+        pres_pen=torch.full((B8,), 0.3, device=device))
+    syncs, where = count_syncs(torch, lambda: gpt2_paged.decode_chunk_paged(
+        eng.params, positions0=torch.full((B8,), 128, dtype=torch.int32),
+        pages=pgs, slots=pos % 128, block_tables=tables, pool=pool,
+        cfg=cfg, num_steps=16, window=cfg.max_seq_len, rng=gen, top_k=64,
+        want_logprobs=True, **dev_args))
+    log(f"  synchronizing CUDA calls in one bare device-sampled link (16 "
+        f"steps, per-row top-k/temperature/greedy, penalties, logprobs): "
+        f"{syncs} {json.dumps(where, sort_keys=True)}")
+    check(syncs == 0, f"device-sampled link: {syncs} synchronizing calls")
+    del pool
+    return launches["paged_decode_attention_quant_parts"]
 
 
 # ---- phase 11: the kernel lab ------------------------------------------------
@@ -1156,12 +1541,14 @@ def main() -> int:
           and launches_main["paged_decode_attention_quant_parts_mq"] == 0,
           f"headline: {launches_main} launches, want {want} int8 "
           f"(L x {st['decode_steps']} decode steps) and no mq launch")
+    greedy_host_ms = 1e3 * (st["t_chain_dispatch_s"]
+                            + st["t_materialize_s"]) / st["decode_steps"]
     log(f"  decode_tok_per_s {st['decode_tok_per_s']:.1f}, p50_ttft_s "
         f"{st['p50_ttft_s']:.4f}, decode steps {st['decode_steps']}, "
         f"launches {launches_main}, wall {st['wall_s']:.3f} s (host: "
         f"prefill dispatch {st['t_prefill_dispatch_s']} s, chain dispatch "
         f"{st['t_chain_dispatch_s']} s, materialize "
-        f"{st['t_materialize_s']} s)")
+        f"{st['t_materialize_s']} s; {greedy_host_ms:.2f} ms a chunk step)")
 
     # 5. fp32 engine: kernel route vs plain route
     phase("phase 5: fp32 engine, kernel route vs plain route")
@@ -1413,6 +1800,11 @@ def main() -> int:
           "1337), 8 rows x 64-token prompts, 64 new tokens, top-k 40")
     launches_cli = phase_cli(torch, pa, params32, cfg, device)
 
+    # 13. the serving front, before any phase that starts torch.profiler
+    phase("phase 13: the serving front (ServingEngine + HTTP) under device "
+          "sampling, fp32 parity engine and int8 headline engine")
+    phase_serving(torch, pa, params32, cfg, device, greedy_host_ms)
+
     # 11. the kernel lab (its main path: the sweeps), then its kernels
     # timed
     phase(f"phase 11: the kernel lab, {LAB_ITERS} timed calls a run")
@@ -1425,6 +1817,10 @@ def main() -> int:
           "suite at 124M, the GEMV and kernel suites at 1558M")
     phase_probe(pa)
     trace_grid(torch, pa, records)
+    cpu_ev, parts_ev, parts_n = profile_cli(torch, pa)
+    log(f"  cli --profile (tiny checkpoint, greedy, batch 2): trace.json "
+        f"with {cpu_ev} CPU operator events and {parts_ev} parts kernel "
+        f"events for {parts_n} parts launches")
     phase("done")
     log(f"  {time.monotonic() - t_start:.1f} s in all")
 

@@ -2,10 +2,9 @@
 GPT2Config, PageConfig and EngineConfig (same fields, same defaults), so
 that one EngineConfig describes the same deployment in both packages.
 
-Fields that select behaviour the port does not have yet (tensor
-parallelism, device sampling, logprobs, streaming) are kept so
-configurations carry over; the port's engine raises NotImplementedError
-when one is switched on.
+``mesh_shape`` (tensor parallelism) is not in the port yet: it is kept
+so configurations carry over, and the port's engine raises
+NotImplementedError when it is set.
 """
 
 from __future__ import annotations
@@ -98,11 +97,18 @@ class EngineConfig:
     temperature: float = 1.0
     top_k: Optional[int] = None
     greedy: bool = False
+    # sample on the DEVICE inside decode chunks (a torch.Generator seeded
+    # with `seed`, top_k/temperature transform) instead of the host parity
+    # sampler: a sampled batch chains, at the cost of the bit-exact
+    # xorshift stream (which stays the default)
     device_sampling: bool = False
     decode_chunk: int = 16             # greedy tokens per device round trip
     spec_k: int = 0
     spec_ngram: int = 3
+    # streaming (run(on_tokens=...)): while a request with stream=True
+    # runs, chains materialize at least every N links
     stream_links: int = 4
+    # allow Request.logprobs / prompt_logprobs (CLI --no-logprobs)
     serve_logprobs: bool = True
     # default stop ids for requests that set none (Request.stop_tokens)
     stop_tokens: tuple = ()

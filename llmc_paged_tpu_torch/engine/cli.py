@@ -9,10 +9,16 @@ Example (paged decode, 8 concurrent sequences, prompts from a token file):
         --checkpoint model.bin --tokenizer tok.bin --data tokens.bin \\
         --mode paged --batch 8 --prompt-size 32 --max-new 50
 
+Serving over HTTP instead (concurrent connections batch continuously):
+    python -m llmc_paged_tpu_torch.engine.cli \
+        --checkpoint model.bin --data tokens.bin --batch 8 \
+        --device-sampling --top-k 40 --warmup --serve 8000
+
 It runs on the card. ``LLMC_PLATFORM=cpu`` selects the CPU (the plain
-PyTorch versions of the kernels); any other value raises. Flags whose
-behaviour is not in the port yet exit with an error naming their ROADMAP
-item.
+PyTorch versions of the kernels); any other value raises. ``--profile
+DIR`` writes a torch.profiler Chrome trace of the run to
+DIR/trace.json. ``--mesh-model`` (tensor parallelism) is not in the port
+yet: it exits with an error naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,12 +36,7 @@ from llmc_paged_tpu_torch.sampler import Sampler
 from llmc_paged_tpu_torch.tokenizer import Tokenizer
 
 # flag -> the ROADMAP item ("Left to port") that would serve it
-LATER_FLAGS = {"serve": "the serving front and HTTP",
-               "warmup": "the serving front and HTTP",
-               "max_pending": "the serving front and HTTP",
-               "device_sampling": "device sampling",
-               "mesh_model": "training and tensor parallelism",
-               "profile": "a trace of the port"}
+LATER_FLAGS = {"mesh_model": "training and tensor parallelism"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,15 +92,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "run to --max-new, the reference's fixed-length "
                         "behavior")
     p.add_argument("--warmup", action="store_true",
-                   help="with --serve (not in the port yet)")
+                   help="with --serve: run every serving path once (the "
+                        "CUDA kernels build, the allocator warms) BEFORE "
+                        "binding the port, so no tenant pays for it")
     p.add_argument("--no-logprobs", action="store_true",
                    help="reject logprobs requests")
     p.add_argument("--max-pending", type=int, default=0, metavar="N",
-                   help="serving backpressure (not in the port yet)")
+                   help="backpressure: reject submissions (HTTP 503) "
+                        "while N live requests are in flight; 0 = "
+                        "unbounded")
     p.add_argument("--serve", type=int, default=0, metavar="PORT",
-                   help="serve over HTTP (not in the port yet)")
+                   help="serve over HTTP on 127.0.0.1:PORT instead of "
+                        "decoding --data prompts: POST /generate "
+                        '{"prompt": [ids], "max_new_tokens": N}; '
+                        "concurrent connections batch continuously")
     p.add_argument("--device-sampling", action="store_true",
-                   help="sample on the device (not in the port yet)")
+                   help="sample on the device inside decode chunks (fast "
+                        "non-greedy serving; not bit-parity with the C "
+                        "xorshift sampler)")
     p.add_argument("--mesh-model", type=int, default=0,
                    help="tensor-parallel ways (not in the port yet)")
     p.add_argument("--no-kernel", action="store_true",
@@ -111,7 +121,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="emit a structured scheduler-state line every N "
                         "iterations (print_state parity, machine-readable)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="a trace of the run (not in the port yet)")
+                   help="write a torch.profiler trace of the run (CPU, and "
+                        "CUDA on the card) to DIR/trace.json, a Chrome "
+                        "trace (chrome://tracing, Perfetto)")
     return p
 
 
@@ -125,6 +137,29 @@ def platform_device():
         raise ValueError(f"LLMC_PLATFORM={plat!r}: the torch port takes "
                          "'cpu' (unset: the card)")
     return "cpu"
+
+
+def start_profile(device):
+    """A started torch.profiler session over the CPU and, on the card,
+    CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, out_dir: str) -> str:
+    """Stop ``prof`` and write its Chrome trace to out_dir/trace.json;
+    returns the path."""
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def main(argv=None) -> int:
@@ -150,6 +185,7 @@ def main(argv=None) -> int:
                          max_batch=args.batch, seed=args.seed,
                          greedy=args.greedy, top_k=args.top_k,
                          temperature=args.temperature,
+                         device_sampling=args.device_sampling,
                          spec_k=args.spec_k, spec_ngram=args.spec_ngram,
                          stop_tokens=tuple(args.stop_token),
                          serve_logprobs=not args.no_logprobs,
@@ -157,27 +193,45 @@ def main(argv=None) -> int:
     engine = InferenceEngine(params, cfg, econf, device=device,
                              use_kernel=not args.no_kernel)
 
+    if args.serve:
+        from llmc_paged_tpu_torch.engine.http_server import serve_http
+        if args.warmup:
+            t = engine.warmup(window=args.window)
+            print(f"warmup: {t}", flush=True)
+        serve_http(engine, port=args.serve, tokenizer=tok,
+                   max_pending=args.max_pending or None,
+                   window=args.window)
+        return 0
+
     def sampler():
         return Sampler(args.seed, args.greedy, top_k=args.top_k,
                        temperature=args.temperature)
 
+    prof = start_profile(engine.device) if args.profile else None
     t0 = time.monotonic()
-    if args.mode == "paged" and args.batch > 1:
-        reqs = []
-        for b in range(args.batch):
-            lo = (b * args.prompt_size) % max(
-                1, len(stream) - args.prompt_size)
-            prompt = stream[lo: lo + args.prompt_size].tolist()
-            reqs.append(Request(rid=b, prompt=prompt,
-                                max_new_tokens=args.max_new))
-        done = engine.run(reqs, window=args.window, sampler=sampler())
-        outs = {r.rid: r.tokens for r in done}
-    else:
-        prompt = stream[: args.prompt_size].tolist()
-        outs = {0: engine.generate(prompt, args.max_new, window=args.window,
-                                   sampler=sampler())}
-    stats = dict(engine.stats)
-    dt = time.monotonic() - t0
+    try:
+        if args.mode == "paged" and args.batch > 1:
+            reqs = []
+            for b in range(args.batch):
+                lo = (b * args.prompt_size) % max(
+                    1, len(stream) - args.prompt_size)
+                prompt = stream[lo: lo + args.prompt_size].tolist()
+                reqs.append(Request(rid=b, prompt=prompt,
+                                    max_new_tokens=args.max_new))
+            done = engine.run(reqs, window=args.window, sampler=sampler())
+            outs = {r.rid: r.tokens for r in done}
+        else:
+            prompt = stream[: args.prompt_size].tolist()
+            outs = {0: engine.generate(prompt, args.max_new,
+                                       window=args.window,
+                                       sampler=sampler())}
+        stats = dict(engine.stats)
+        dt = time.monotonic() - t0
+    finally:
+        # stop even on failure, so a --profile run debugging that very
+        # failure still gets its trace
+        if prof is not None:
+            stop_profile(prof, args.profile)
 
     stats.update(mode=args.mode, batch=args.batch, wall_s=dt,
                  total_new_tokens=args.max_new * len(outs))

@@ -6,11 +6,17 @@ paged_infer.c mains), plus continuous batching on the paged path.
 full forward over the trailing window each step, "dense" decodes over a
 contiguous KV cache, "paged" runs one request through ``run``.
 
-Sampling is on the host, as in the reference (train_gpt2.cu:1238-1239):
-the xorshift parity ``Sampler`` (greedy, top-k, temperature, and
-per-request overrides), one RNG stream consumed per stochastic row in row
-order. Greedy rows pick on the device and ship 4 bytes; top-k ships a
-(N, k') prefix of each row; the plain parity sampler ships the softmax.
+Sampling is on the host by default, as in the reference
+(train_gpt2.cu:1238-1239): the xorshift parity ``Sampler`` (greedy, top-k,
+temperature, and per-request overrides), one RNG stream consumed per
+stochastic row in row order. Greedy rows pick on the device and ship 4
+bytes; top-k ships a (N, k') prefix of each row; the plain parity sampler
+ships the softmax. With EngineConfig.device_sampling, decode chunks draw
+on the device from a torch.Generator seeded with EngineConfig.seed (not
+bit-parity with the xorshift stream), so a sampled batch chains as a
+greedy one does. Requests may ask for raw-softmax logprobs of their
+tokens (and of their prompt) and for frequency/presence penalties over
+their full context.
 
 Continuous batching over the paged pool:
   * admission waves, each with ONE padded prefill (rows padded to the
@@ -19,13 +25,15 @@ Continuous batching over the paged pool:
     the device and fetched after the first decode link is queued,
     sampled ones are drawn at admission;
   * sliding-window page reclamation;
-  * chains of K-step greedy decode chunks (a batch whose rows are all
-    effectively greedy): pages reserved K tokens ahead, a free-page guard
-    so no eviction happens mid-chain, tokens fed back on the device
-    between links, and ONE device→host copy per chain;
+  * chains of K-step decode chunks (a batch whose rows are all
+    effectively greedy, or any batch under device sampling): pages
+    reserved K tokens ahead, a free-page guard so no eviction happens
+    mid-chain, tokens (and a penalty count plane) fed back on the device
+    between links, and ONE device→host copy per chain (tokens and
+    logprobs together);
   * a single-token step when no chain can run (every step of a batch
-    with a sampled row: the host stream cannot feed back on the device),
-    with LRU preemption and requeue of the victims;
+    with a host-sampled row: the host stream cannot feed back on the
+    device), with LRU preemption and requeue of the victims;
   * stop tokens;
   * speculative decode (EngineConfig.spec_k >= 2): chains of verify
     chunks, each step scoring the carried token plus n-gram drafts; the
@@ -36,11 +44,16 @@ Continuous batching over the paged pool:
     admitted row adopts its longest cached prefix and only its suffix is
     prefilled (prefill_suffix_paged).
 
-Host↔device traffic per link: a few int32 metadata arrays go up (first
-tokens, positions, page/slot coordinates, block tables; a speculative
-link uploads only its block tables and its active-row mask); tokens
-(and a speculative chain's acceptance counts) come down once per chain. Options outside this slice of the port raise
-NotImplementedError and name their ROADMAP item.
+Serving: ``run(feed=..., on_tokens=...)`` is the long-lived loop of
+engine/server.ServingEngine (arrivals join at the next admission wave,
+streaming flushes, cancellation, a live stats snapshot).
+
+Host↔device traffic per link: a few int32 metadata arrays go up through
+pinned memory without blocking (first tokens, positions, page/slot
+coordinates, block tables; a speculative link uploads only its block
+tables and its active-row mask); tokens (and logprobs, or a speculative
+chain's acceptance counts) come down once per chain. Tensor parallelism
+raises NotImplementedError and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,7 +68,7 @@ import torch
 from llmc_paged_tpu_torch import resolve_device
 from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config, PageConfig
 from llmc_paged_tpu_torch.engine.scheduler import Request, Scheduler, State
-from llmc_paged_tpu_torch.kv.layouts import init_pool, token_coords
+from llmc_paged_tpu_torch.kv.layouts import init_pool, to_device, token_coords
 from llmc_paged_tpu_torch.kv.manager import (
     BlockManager,
     PrefixCachingBlockManager,
@@ -148,29 +161,98 @@ def _has_overrides(req: Request) -> bool:
             or req.temperature is not None)
 
 
+def _has_penalties(req: Request) -> bool:
+    return bool(req.frequency_penalty or req.presence_penalty)
+
+
+def _penalized_row(row: np.ndarray, req: Request) -> np.ndarray:
+    """Host twin of the device chunk's penalty subtraction: counts over
+    the FULL context (prompt + generated so far)."""
+    V = row.shape[-1]
+    cnt = np.zeros(V, np.float32)
+    np.add.at(cnt, np.clip(np.asarray(req.tokens), 0, V - 1), 1.0)
+    return (row.astype(np.float32) - req.frequency_penalty * cnt
+            - req.presence_penalty * (cnt > 0))
+
+
+def _unpack_chunk(res, pen: bool, want_lp: bool):
+    """decode_chunk_paged returns (out[, counts][, logps], pool) by flag;
+    normalize to (out, counts|None, logps|None, pool)."""
+    i = 1
+    counts = lp = None
+    if pen:
+        counts = res[i]
+        i += 1
+    if want_lp:
+        lp = res[i]
+    return res[0], counts, lp, res[-1]
+
+
+def _fetch(ints: torch.Tensor, floats: Optional[torch.Tensor]):
+    """ONE device→host copy of an int32 tensor and an optional f32 tensor
+    of the same shape (the floats travel as their int32 bit patterns).
+    Returns (ints, floats|None) as numpy arrays."""
+    if floats is None:
+        return ints.cpu().numpy(), None
+    both = torch.stack([ints.int(), floats.float().view(torch.int32)])
+    both = both.cpu().numpy()
+    return both[0], both[1].view(np.float32)
+
+
 def _sample_rows_per_request(sampler: Sampler, logits,
                              reqs: List[Request]) -> List[int]:
     """Per-row transforms for mixed batches (some request overrides
-    greedy/top_k/temperature): each stochastic row draws from the SHARED
-    engine RNG stream in row order; greedy rows consume nothing. Ships
-    full rows. Draws bypass Sampler.sample (its greedy flag would turn an
-    explicit non-greedy override into argmax), and transform-free rows use
-    the same device softmax as _sample_rows, so a row WITHOUT overrides
-    samples bit-identically to a uniform batch."""
+    greedy/top_k/temperature, or sets penalties): each stochastic row
+    draws from the SHARED engine RNG stream in row order; greedy rows
+    consume nothing. Ships full rows. Draws bypass Sampler.sample (its
+    greedy flag would turn an explicit non-greedy override into argmax),
+    and transform-free rows use the same device softmax as _sample_rows,
+    so a row WITHOUT overrides samples bit-identically to a uniform
+    batch. A penalized row picks from its penalized logits."""
     eff = [_effective(sampler, r) for r in reqs]
     rows = _host(logits)
-    plain = any(not g and tk is None and tmp == 1.0 for g, tk, tmp in eff)
+    plain = any(not g and tk is None and tmp == 1.0
+                and not _has_penalties(r)
+                for (g, tk, tmp), r in zip(eff, reqs))
     probs = _host(torch.softmax(logits, dim=-1)) if plain else None
     out = []
     for i, (g, tk, tmp) in enumerate(eff):
+        req = reqs[i]
+        row = (rows[i] if not _has_penalties(req)
+               else _penalized_row(rows[i], req))
         if g:
-            out.append(int(np.argmax(rows[i])))
-        elif tk is None and tmp == 1.0:
+            out.append(int(np.argmax(row)))
+        elif tk is None and tmp == 1.0 and not _has_penalties(req):
             out.append(sample_mult(probs[i], sampler.rng.random_f32()))
         else:
-            out.append(sample_mult(topk_probs(rows[i], tk, tmp),
+            out.append(sample_mult(topk_probs(row, tk, tmp),
                                    sampler.rng.random_f32()))
     return out
+
+
+def _row_logprob(row: np.ndarray, tok: int) -> float:
+    """Chosen token's logprob under the raw softmax of one (V,) logits
+    row: the host twin of the device chunk's logsumexp gather."""
+    row = np.asarray(row, np.float32)
+    m = float(row.max())
+    return float(row[tok] - m
+                 - np.log(np.exp(row - m, dtype=np.float32)
+                          .sum(dtype=np.float32)))
+
+
+def _prefill_plp_extract(full, xs, valid, last):
+    """From full-T prefill logits (B, T, V): the last-position logits
+    (B, V) for the first pick, and each next token's RAW-softmax logprob
+    (B, T-1): tok_lp[b, t] scores xs[b, t+1] given xs[b, :t+1]."""
+    dev = full.device
+    xs, valid, last = (to_device(a, dev) for a in (xs, valid, last))
+    lg = full[:, :-1].float()
+    tok_lp = (torch.gather(lg, 2, xs[:, 1:, None].long())[..., 0]
+              - torch.logsumexp(lg, dim=-1))
+    tok_lp = torch.where(valid[:, 1:], tok_lp, 0.0)
+    last_logits = full[torch.arange(full.shape[0], device=dev),
+                       last.long()]
+    return last_logits, tok_lp
 
 
 def _pick_token(sampler: Sampler, logits_row) -> int:
@@ -259,6 +341,11 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)
         self.use_kernel = use_kernel
         self.stats: Dict[str, float] = {}
+        # live snapshot for long-lived serving runs (self.stats is written
+        # only when run() returns): rebuilt as a whole dict at every
+        # scheduler iteration, so readers on other threads never see a
+        # partial update; host bookkeeping only
+        self.live_stats: Dict[str, float] = {}
         # the pool is kept across run() calls: stale contents are never
         # read (tables and lengths only cover tokens of the current run)
         self._pool_cache = None
@@ -277,8 +364,6 @@ class InferenceEngine:
                 "stochastic samplers is not implemented")
         if econf.mesh_shape:
             raise _later("mesh_shape", "training and tensor parallelism")
-        if econf.device_sampling:
-            raise _later("device_sampling", "device sampling")
         if econf.param_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"param_dtype {econf.param_dtype!r}")
         if econf.activation_dtype not in _DTYPES:
@@ -378,10 +463,13 @@ class InferenceEngine:
 
     def validate_request(self, req: Request,
                          window: Optional[int] = None) -> None:
-        """Raise if ``req`` could never be scheduled or asks for invalid
-        sampling values (ValueError), or asks for an option outside this
-        slice of the port (NotImplementedError)."""
-        page = self.econf.page
+        """Raise ValueError if ``req`` could never be scheduled, asks for
+        invalid sampling values, or asks for an option this engine's
+        configuration cannot serve (the JAX package's gates and
+        messages). run() applies this to every request; a serving front
+        calls it at submission so a bad request fails its own future."""
+        econf = self.econf
+        page = econf.page
         window = _check_window(window, self.cfg)
         if not req.prompt:
             raise ValueError(f"request {req.rid} has an empty prompt")
@@ -393,11 +481,52 @@ class InferenceEngine:
         if req.top_k is not None and req.top_k < 1:
             raise ValueError(f"request {req.rid}: top_k must be >= 1, "
                              f"got {req.top_k}")
-        if req.logprobs or req.prompt_logprobs:
-            raise _later("logprobs", "logprobs and penalties")
-        if req.frequency_penalty or req.presence_penalty:
-            raise _later("penalties", "logprobs and penalties")
-        if (_has_overrides(req) and self.econf.spec_k >= 2
+        if req.logprobs:
+            if not econf.serve_logprobs:
+                raise ValueError(
+                    f"request {req.rid}: logprobs are disabled on this "
+                    "engine (EngineConfig.serve_logprobs / CLI "
+                    "--no-logprobs)")
+            if econf.spec_k >= 2:
+                raise ValueError(
+                    f"request {req.rid}: logprobs under speculative "
+                    "decoding are not supported (acceptance-variable "
+                    "verify steps)")
+            if econf.cache_mode != "paged":
+                raise ValueError(
+                    f"request {req.rid}: logprobs require paged serving")
+        if req.prompt_logprobs:
+            if not econf.serve_logprobs:
+                raise ValueError(
+                    f"request {req.rid}: logprobs are disabled on this "
+                    "engine (EngineConfig.serve_logprobs / CLI "
+                    "--no-logprobs)")
+            if econf.cache_mode != "paged":
+                raise ValueError(f"request {req.rid}: prompt_logprobs "
+                                 "require paged serving")
+            if page.prefix_cache:
+                raise ValueError(
+                    f"request {req.rid}: prompt_logprobs with prefix "
+                    "caching are not supported (adopted prefix pages "
+                    "skip their prefill, so those positions' logits "
+                    "never exist)")
+            if len(req.prompt) > window:
+                raise ValueError(
+                    f"request {req.rid}: prompt_logprobs need the whole "
+                    f"prompt attended — prompt {len(req.prompt)} > "
+                    f"window {window}")
+        if _has_penalties(req):
+            for name in ("frequency_penalty", "presence_penalty"):
+                v = getattr(req, name)
+                if not (float("-inf") < v < float("inf")):
+                    raise ValueError(f"request {req.rid}: {name} must be "
+                                     f"finite, got {v}")
+            if econf.spec_k >= 2:
+                raise ValueError(
+                    f"request {req.rid}: penalties under speculative "
+                    "decoding are not supported (the penalized pick is "
+                    "not the verified raw argmax)")
+        if (_has_overrides(req) and econf.spec_k >= 2
                 and not _effective(self._default_sampler(), req)[0]):
             raise ValueError(
                 f"request {req.rid}: spec_k requires greedy decoding; a "
@@ -422,8 +551,8 @@ class InferenceEngine:
         # spec_k / prefix_cache require that the window never activates:
         # sliding would make page content position-dependent and change
         # what verify queries attend mid-stream
-        if (self.econf.spec_k >= 2 or page.prefix_cache) and need > window:
-            mode = "spec_k" if self.econf.spec_k >= 2 else "prefix_cache"
+        if (econf.spec_k >= 2 or page.prefix_cache) and need > window:
+            mode = "spec_k" if econf.spec_k >= 2 else "prefix_cache"
             raise ValueError(
                 f"{mode} with sliding-window serving is not supported: "
                 f"request {req.rid} outgrows the window ({window})")
@@ -460,10 +589,24 @@ class InferenceEngine:
         """Continuous batching over the paged pool. Returns the finished
         requests (the same objects, with .generated/.ttft/.preemptions
         filled). ``sampler`` is the host sampler (default: the
-        EngineConfig's); ``on_finish(req)`` is called as each request
-        finishes. ``feed`` and ``on_tokens`` belong to a later slice."""
-        if feed is not None or on_tokens is not None:
-            raise _later("feed/on_tokens", "the serving front and HTTP")
+        EngineConfig's).
+
+        ``feed``: optional ``feed(block) -> (list[Request], still_open)``
+        polled every scheduler iteration and between chain links:
+        requests arriving while others run join the batch at the next
+        admission wave (engine/server.ServingEngine is the threaded
+        front). With ``block=True`` (engine idle) it may wait briefly for
+        work. The loop exits when the feed reports closed and all work
+        drained. With a feed, finished requests are not retained (the
+        return value is empty); they are delivered through ``on_finish``,
+        which is called with each request the moment it finishes.
+
+        ``on_tokens``: optional ``on_tokens(req, new_tokens)`` called at
+        every materialization with the tokens appended since its last
+        call (streaming). While a request with ``req.stream`` runs,
+        chains cap at EngineConfig.stream_links links a materialization.
+        A request whose ``cancelled`` flag is set (from any thread) is
+        retired at the next iteration top or chain materialization."""
         cfg, econf = self.cfg, self.econf
         page = econf.page
         window = _check_window(window, cfg)
@@ -474,27 +617,48 @@ class InferenceEngine:
                 "accepts argmax matches; rejection sampling for the "
                 "stochastic samplers is not implemented")
         sched = Scheduler(econf.max_batch)
+        # a long-lived serving loop must not grow with request count:
+        # finished requests are dropped after delivery; batch runs keep
+        # them (run() returns them)
+        retain_finished = feed is None
+        n_finished = 0
         ttfts: "collections.deque" = collections.deque(maxlen=1024)
         dev = self.device
 
         def record_finished(r: Request) -> None:
+            """Bookkeeping of every finish path; drops the request from
+            sched.finished under serving (it was appended just before)."""
+            nonlocal n_finished
+            n_finished += 1
             if r.t_done is None:
                 r.t_done = time.monotonic()
             if r.ttft is not None:
                 ttfts.append(r.ttft)
+            if not retain_finished:
+                sched.finished.pop()
+
+        def retire_unscheduled(r: Request) -> None:
+            r.state = State.DONE
+            sched.finished.append(r)
+            record_finished(r)
             if on_finish is not None:
                 on_finish(r)
 
-        for r in requests:
+        def submit_one(r: Request) -> None:
+            if r.cancelled:        # cancelled before it ever reached us
+                retire_unscheduled(r)
+                return
             self.validate_request(r, window)
-        for r in requests:
-            if r.cancelled or r.max_new_tokens <= 0:
-                r.state = State.DONE
-                sched.finished.append(r)
-                record_finished(r)
-            else:
-                sched.submit(r)
+            if r.max_new_tokens <= 0:
+                retire_unscheduled(r)
+                return
+            sched.submit(r)
 
+        for r in requests:
+            submit_one(r)
+
+        # the pool is taken only after every request validated: a
+        # ValueError above keeps the pool cache
         mgr, pool = self._paged_state()
         B = econf.max_batch
         pps = page.pages_per_seq
@@ -521,6 +685,13 @@ class InferenceEngine:
         prefix_stats = {"hit_tokens": 0, "hit_pages": 0, "registered": 0}
         use_spec = econf.spec_k >= 2
         spec_stats = {"steps": 0, "accepted": 0}
+        # device sampling draws from one generator on the engine's device,
+        # seeded per run; an all-greedy chain passes rng=None and keeps the
+        # greedy stream
+        sample_gen = None
+        if econf.device_sampling:
+            sample_gen = torch.Generator(device=dev)
+            sample_gen.manual_seed(econf.seed)
 
         def requeue_evicted(evicted: List[int],
                             skip_slot: int = -1) -> List[int]:
@@ -534,8 +705,10 @@ class InferenceEngine:
 
         def apply_stop(req: Request) -> int:
             """Scan newly materialized tokens for a stop id; on a hit keep
-            the stop token, discard the overshoot past it and mark the
-            request stopped. Returns the discarded count."""
+            the stop token, discard the overshoot past it (and its
+            logprobs) and mark the request stopped. Returns the discarded
+            count. Runs before notify_tokens, so streams never see
+            post-stop tokens."""
             stops = (req.stop_tokens if req.stop_tokens is not None
                      else econf.stop_tokens)
             if not stops or req.stopped:
@@ -545,29 +718,103 @@ class InferenceEngine:
                 if gen[k] in stops:
                     discarded = len(gen) - (k + 1)
                     del gen[k + 1:]
+                    del req.logprob_values[k + 1:]
                     req.stopped = True
                     return discarded
             req._stop_scanned = len(gen)
             return 0
 
-        def finish_slot(slot: int) -> None:
-            record_finished(sched.finish(slot))
+        def notify_tokens(req: Request) -> None:
+            """Flush the tokens appended since the last flush (a watermark
+            on the request, so it survives preemption)."""
+            if on_tokens is None or req.cancelled:
+                return
+            n = len(req.generated)
+            sent = getattr(req, "_stream_sent", 0)
+            if n > sent:
+                on_tokens(req, req.generated[sent:n])
+                req._stream_sent = n
 
-        while sched.has_work:
+        def finish_slot(slot: int) -> None:
+            req = sched.finish(slot)
+            record_finished(req)
+            # the live snapshot counts this finish before the callbacks
+            # resolve the request's future
+            update_live_stats()
+            notify_tokens(req)
+            if on_finish is not None:
+                on_finish(req)
+
+        def sweep_cancelled() -> None:
+            """Retire requests cancelled since the last iteration. No
+            chain is in flight at the iteration top, so a running row's
+            pages free wholesale here as a finished row's do (the device
+            runs in order). A cancel landing mid-chain is seen at that
+            chain's materialization."""
+            for req in [r for r in sched.waiting if r.cancelled]:
+                sched.waiting.remove(req)
+                retire_unscheduled(req)
+            for slot, req in list(sched.running.items()):
+                if req.cancelled:
+                    mgr.free_prompt(slot)
+                    finish_slot(slot)
+
+        def update_live_stats() -> None:
+            """Whole-dict swap, so readers on other threads (ServingEngine
+            .stats(), HTTP GET /stats) never see a partial update.
+            Counters only: a serving loop runs this every iteration."""
+            dt = time.monotonic() - t_start
+            self.live_stats = {
+                "running": len(sched.running),
+                "waiting": len(sched.waiting),
+                "finished_total": n_finished,
+                "decode_tokens": decode_tokens,
+                "decode_tok_per_s": decode_tokens / dt if dt > 0 else 0.0,
+                "pages_free": mgr.num_free(),
+                "peak_pages_used": peak_pages,
+                "preemptions": sched.preempt_count,
+                "uptime_s": dt,
+            }
+
+        def poll_feed() -> None:
+            """Serving, between chain links: arrivals join the waiting
+            queue (a host queue check; nothing touches the device)."""
+            nonlocal feed_open, queue_blocked
+            new_reqs, feed_open = feed(False)
+            for r in new_reqs:
+                submit_one(r)
+            queue_blocked = queue_blocked or bool(sched.waiting)
+
+        feed_open = feed is not None
+        while True:
+            if feed_open:
+                # requests that arrived join this iteration's admission
+                # wave; an idle engine lets the feed block briefly
+                new_reqs, feed_open = feed(not sched.has_work)
+                for r in new_reqs:
+                    submit_one(r)
+            sweep_cancelled()
+            update_live_stats()
+            if not sched.has_work:
+                if feed_open:
+                    continue
+                break
             iteration += 1
             if econf.log_every and iteration % econf.log_every == 0:
                 dt = time.monotonic() - t_start
                 print(f'{{"iter": {iteration}, '
                       f'"running": {len(sched.running)}, '
                       f'"waiting": {len(sched.waiting)}, '
-                      f'"finished": {len(sched.finished)}, '
+                      f'"finished": {n_finished}, '
                       f'"pages_free": {mgr.num_free()}, '
                       f'"decode_tokens": {decode_tokens}, '
                       f'"tok_per_s": {decode_tokens / dt if dt else 0:.1f}}}',
                       flush=True)
             # ---- admission + one batched prefill per wave ----------------
             progressed = False
-            deferred = None   # (device picks, group): greedy first tokens
+            # (device picks, device logprobs|None, group): greedy first
+            # tokens picked on the device, fetched after the first link
+            deferred = None
             admitted: List[Tuple[int, Request]] = []
             for slot in sched.free_slots():
                 req = sched.pop_next_waiting()
@@ -625,6 +872,10 @@ class InferenceEngine:
                 pg, sl = token_coords(torch.from_numpy(tables_g),
                                       torch.from_numpy(pos), page.page_size,
                                       torch.from_numpy(valid), page.num_pages)
+                plp_rows = [(i, req) for i, (slot, req) in enumerate(group)
+                            if req.prompt_logprobs
+                            and not req.prompt_logprob_values
+                            and not req.generated]
                 if offs.any():
                     # a row rides adopted pages: the suffix prefill attends
                     # the cached prefix through the block table (rows with
@@ -636,6 +887,21 @@ class InferenceEngine:
                         cfg, last_pos=torch.from_numpy(last),
                         use_kernel=self.use_kernel)             # (Bg, V)
                     suffix_prefills += 1
+                elif plp_rows:
+                    # scoring rows take the full (Bg, T, V) logits, the
+                    # next-token logprobs are taken on the device and
+                    # fetched once for the wave
+                    full, pool = gpt2_paged.prefill_paged(
+                        self._prefill_params or self.params,
+                        torch.from_numpy(xs), pg, sl, pool, cfg,
+                        last_pos=None)                          # (Bg, T, V)
+                    logits, plp_d = _prefill_plp_extract(full, xs, valid,
+                                                         last)
+                    del full
+                    plp = plp_d.cpu().numpy()
+                    for i, req in plp_rows:
+                        req.prompt_logprob_values = [
+                            float(v) for v in plp[i, : len(req.prompt) - 1]]
                 else:
                     logits, pool = gpt2_paged.prefill_paged(
                         self._prefill_params or self.params,
@@ -650,43 +916,60 @@ class InferenceEngine:
                         prefix_stats["registered"] += mgr.register_prompt(
                             slot, req.tokens)
                 group_reqs = [r for _, r in group]
-                if all(_effective(sampler, r)[0] for r in group_reqs):
+                group_lp = any(r.logprobs for r in group_reqs)
+                lg = logits[: len(group)]
+                if all(_effective(sampler, r)[0] for r in group_reqs) \
+                        and not any(_has_penalties(r) for r in group_reqs):
                     # greedy: pick on the device and fetch after the first
                     # chain link is queued, so the download overlaps decode
-                    picks_d = torch.argmax(logits[: len(group)],
-                                           dim=-1).int()
-                    deferred = (picks_d, list(group))
+                    picks_d = torch.argmax(lg, dim=-1).int()
+                    lps_d = None
+                    if group_lp:
+                        lgf = lg.float()
+                        lps_d = (torch.gather(lgf, 1,
+                                              picks_d.long()[:, None])[:, 0]
+                                 - torch.logsumexp(lgf, dim=-1))
+                    deferred = (picks_d, lps_d, list(group))
                 else:
-                    # a sampled row draws its first token now, from the
-                    # host stream in row order
-                    lg = logits[: len(group)]
-                    if any(_has_overrides(r) for r in group_reqs):
+                    # a sampled or penalized row draws its first token now,
+                    # from the host stream in row order
+                    if any(_has_overrides(r) or _has_penalties(r)
+                           for r in group_reqs):
                         first_toks = _sample_rows_per_request(
                             sampler, lg, group_reqs)
                     else:
                         first_toks = _sample_rows(sampler, lg, len(group))
+                    lrows = _host(lg) if group_lp else None
                     for i, (slot, req) in enumerate(group):
                         req.generated.append(first_toks[i])
+                        if req.logprobs:
+                            req.logprob_values.append(
+                                _row_logprob(lrows[i], first_toks[i]))
                         req.mark_first_token()
                         apply_stop(req)
+                        notify_tokens(req)
                         if req.done:
                             mgr.free_prompt(slot)
                             finish_slot(slot)
                 tacc["prefill_dispatch"] += time.monotonic() - t_pf0
 
             def flush_deferred():
-                """Materialize the deferred prefill picks. Runs before any
-                path that reads req.tokens[-1] on the host."""
+                """Materialize the deferred prefill picks (and logprobs, in
+                the same copy). Runs before any path that reads
+                req.tokens[-1] on the host."""
                 nonlocal deferred, progressed
                 if deferred is None:
                     return
                 t_m0 = time.monotonic()
-                picks = deferred[0].cpu().numpy()
+                picks, lps = _fetch(deferred[0], deferred[1])
                 tacc["materialize"] += time.monotonic() - t_m0
-                for i, (slot, req) in enumerate(deferred[1]):
+                for i, (slot, req) in enumerate(deferred[2]):
                     req.generated.append(int(picks[i]))
+                    if req.logprobs and lps is not None:
+                        req.logprob_values.append(float(lps[i]))
                     req.mark_first_token()
                     apply_stop(req)
+                    notify_tokens(req)
                     if req.done:
                         mgr.free_prompt(slot)
                         finish_slot(slot)
@@ -701,35 +984,46 @@ class InferenceEngine:
                         mgr.release_below(slot, start)
             peak_pages = max(peak_pages, page.num_pages - mgr.num_free())
 
-            # ---- chunked greedy decode -----------------------------------
+            # ---- chunked decode ------------------------------------------
             chunk = 1
             # a batch whose every row is effectively greedy chains; a
-            # sampled row needs the host stream, so such a batch steps
+            # stochastic row needs device sampling to chain (the host
+            # stream cannot feed back on the device)
             all_greedy = all(_effective(sampler, r)[0]
                              for r in sched.running.values())
+            row_overrides = any(_has_overrides(r)
+                                for r in sched.running.values())
+            chainable = all_greedy or econf.device_sampling
             # once admission has run, anything still waiting is blocked on
             # slots or pages: chains run anyway but stay short
             queue_blocked = bool(sched.waiting)
-            # a stop is only seen at materialization: cap chains at
-            # stream_links links while a row has stop ids
+            # a streaming consumer, or a stop (seen only at
+            # materialization), caps chains at stream_links links
             stream_cap = (econf.stream_links
-                          if any(r.stop_tokens if r.stop_tokens is not None
-                                 else econf.stop_tokens
+                          if any((r.stream and on_tokens is not None)
+                                 or (r.stop_tokens if r.stop_tokens
+                                     is not None else econf.stop_tokens)
                                  for r in sched.running.values())
                           else 0)
+
+            def cancel_pending() -> bool:
+                """A running row was cancelled from another thread: break
+                the chain at this link so the materialization retires it
+                now, not at the chain's end."""
+                return any(r.cancelled for r in sched.running.values())
 
             def defer_counts():
                 """One not-yet-appended token per slot with a deferred
                 prefill pick."""
-                return {s: 1 for s, _ in deferred[1]} if deferred else {}
+                return {s: 1 for s, _ in deferred[2]} if deferred else {}
 
             # ---- speculative chunk chain (EngineConfig.spec_k) ---------
-            # Like the greedy chain below, but each device step VERIFIES
-            # spec_k tokens (carried token + device n-gram drafts) and
-            # yields 1..spec_k of them. Acceptance is data-dependent, so
-            # the host reserves the maximum (S*spec_k tokens a row a link)
-            # and rolls the manager back to the accepted length with
-            # truncate_to once the chain materializes.
+            # Like the chain below, but each device step VERIFIES spec_k
+            # tokens (carried token + device n-gram drafts) and yields
+            # 1..spec_k of them. Acceptance is data-dependent, so the host
+            # reserves the maximum (S*spec_k tokens a row a link) and rolls
+            # the manager back to the accepted length with truncate_to
+            # once the chain materializes.
             if use_spec and sched.running:
                 flush_deferred()   # the spec chain reads req.tokens
                 S = max(1, econf.decode_chunk)
@@ -784,13 +1078,13 @@ class InferenceEngine:
                             first[slot] = req.tokens[-1]
                             pos0[slot] = len(req.tokens) - 1
                         hist_d, first_d, pos0_d = (
-                            gpt2_paged.to_device(torch.from_numpy(a), dev)
+                            to_device(torch.from_numpy(a), dev)
                             for a in (hist, first, pos0))
                     else:
                         # deactivate rows that left the plan; a row never
                         # re-enters mid-chain
                         pos0_d = torch.where(
-                            gpt2_paged.to_device(torch.from_numpy(keep), dev),
+                            to_device(torch.from_numpy(keep), dev),
                             pos0_d, -1)
                     out_d, counts_d, hist_d, first_d, pos0_d, pool = \
                         gpt2_paged.decode_chunk_spec(
@@ -804,6 +1098,9 @@ class InferenceEngine:
                     links += 1
                     peak_pages = max(peak_pages,
                                      page.num_pages - mgr.num_free())
+                    if feed_open:        # serving: arrivals break chains
+                        poll_feed()
+                    update_live_stats()  # per-link snapshot
                     # acceptance is data-dependent: a row MAY have finished
                     # once links*S*spec_k covers its remaining budget
                     may_free = any(
@@ -811,10 +1108,13 @@ class InferenceEngine:
                         <= links * S * Ksp for s in plan)
                     if stream_cap and links >= stream_cap:
                         break
-                    if queue_blocked or (on_finish is not None
+                    if cancel_pending():
+                        break
+                    if queue_blocked or ((feed_open or on_finish is not None)
                                          and may_free):
                         # under queue pressure a row may finish at ANY
-                        # link: materialize so its slot and pages free
+                        # link: materialize so its slot and pages free;
+                        # when serving, deliver a finished row now
                         break
                 tacc["chain_dispatch"] += time.monotonic() - t_cd0
                 if pending_spec:
@@ -848,6 +1148,7 @@ class InferenceEngine:
                             del req.generated[req.max_new_tokens:]
                         apply_stop(req)
                         decode_tokens += len(req.generated) - gen_before[slot]
+                        notify_tokens(req)
                     for slot in list(sched.running):
                         if sched.running[slot].done:
                             mgr.free_prompt(slot)
@@ -865,7 +1166,7 @@ class InferenceEngine:
                 # a link, and the single-token step below it
 
             dct = defer_counts()
-            if all_greedy and sched.running:
+            if chainable and sched.running:
                 # capacity-bound only: rows that reach max_new mid-chunk are
                 # truncated on the host
                 cap = min(page.max_context
@@ -885,7 +1186,60 @@ class InferenceEngine:
                 # is guarded by a free-page check, so no eviction happens
                 # mid-chain; token values come back ONCE after the chain
                 ps = page.page_size
-                pending: List = []   # (toks (chunk,B) device, [(slot, keep)])
+                # the chain's sampling mode: an all-greedy chain keeps the
+                # argmax (rng None); a uniform sampled batch passes the
+                # sampler's scalars; only per-request overrides build (B,)
+                # arrays. Everything goes up once a chain.
+                chain_rng = sample_gen is not None and not all_greedy
+                want_lp = any(r.logprobs for r in sched.running.values())
+                samp_kw = {}
+                if chain_rng and row_overrides:
+                    tarr = np.ones(B, np.float32)
+                    karr = np.zeros(B, np.int32)
+                    garr = np.zeros(B, bool)
+                    kmax = 0
+                    for slot2, r2 in sched.running.items():
+                        g2, tk2, tmp2 = _effective(sampler, r2)
+                        garr[slot2] = g2
+                        tarr[slot2] = tmp2 if not g2 else 1.0
+                        if not g2 and tk2 and tk2 < cfg.vocab_size:
+                            # tk2 >= V means no filter (the host
+                            # topk_probs bound), not a clamp to V-1
+                            karr[slot2] = tk2
+                            kmax = max(kmax, tk2)
+                    # a power-of-two cap, below V so the filter stays on
+                    kcap = (min(1 << (kmax - 1).bit_length(),
+                                cfg.vocab_size - 1) if kmax else None)
+                    karr = np.minimum(karr, kcap or 0)
+                    samp_kw = dict(
+                        rng=sample_gen, top_k=kcap,
+                        temperature=to_device(torch.from_numpy(tarr), dev),
+                        k_arr=(to_device(torch.from_numpy(karr), dev)
+                               if kcap else None),
+                        greedy_rows=to_device(torch.from_numpy(garr), dev))
+                elif chain_rng:
+                    samp_kw = dict(rng=sample_gen, top_k=sampler.top_k,
+                                   temperature=sampler.temperature)
+                # penalties thread a (B, V) count plane through the chain:
+                # built on the host from each row's full context at chain
+                # start, uploaded once, updated on the device with each
+                # pick
+                pen_kw = {}
+                if any(_has_penalties(r) for r in sched.running.values()):
+                    fparr = np.zeros(B, np.float32)
+                    pparr = np.zeros(B, np.float32)
+                    cnt0 = np.zeros((B, cfg.vocab_size), np.int32)
+                    for slot2, r2 in sched.running.items():
+                        fparr[slot2] = r2.frequency_penalty
+                        pparr[slot2] = r2.presence_penalty
+                        np.add.at(cnt0[slot2],
+                                  np.clip(np.asarray(r2.tokens), 0,
+                                          cfg.vocab_size - 1), 1)
+                    pen_kw = dict(
+                        pen_counts=to_device(torch.from_numpy(cnt0), dev),
+                        freq_pen=to_device(torch.from_numpy(fparr), dev),
+                        pres_pen=to_device(torch.from_numpy(pparr), dev))
+                pending: List = []   # (toks (chunk,B), logps|None, stepped)
                 pend_counts: Dict[int, int] = {}
                 first_dev = None
                 t_cd0 = time.monotonic()
@@ -952,27 +1306,37 @@ class InferenceEngine:
                     if first_dev is not None:
                         link_first = first_dev
                     else:
-                        link_first = torch.from_numpy(first).to(dev)
+                        link_first = to_device(torch.from_numpy(first), dev)
                         if deferred is not None:
-                            dslots = torch.tensor(
-                                [s for s, _ in deferred[1]], device=dev)
+                            dslots = to_device(torch.tensor(
+                                [s for s, _ in deferred[2]]), dev)
                             link_first[dslots] = deferred[0]
-                    toks_out, pool = gpt2_paged.decode_chunk_paged(
+                    res = gpt2_paged.decode_chunk_paged(
                         self.params, link_first, torch.from_numpy(pos0),
                         torch.from_numpy(pgs), torch.from_numpy(sls),
                         torch.from_numpy(tables), pool, cfg,
                         num_steps=chunk, window=window,
-                        use_kernel=self.use_kernel)
+                        use_kernel=self.use_kernel, want_logprobs=want_lp,
+                        **samp_kw, **pen_kw)
+                    toks_out, counts_out, lp_out, pool = _unpack_chunk(
+                        res, bool(pen_kw), want_lp)
+                    if counts_out is not None:
+                        pen_kw["pen_counts"] = counts_out
                     decode_steps += chunk
                     first_dev = toks_out[-1]
-                    pending.append((toks_out, stepped))
+                    pending.append((toks_out, lp_out, stepped))
                     # the first link is queued: fetch the deferred picks
                     flush_deferred()
                     peak_pages = max(peak_pages,
                                      page.num_pages - mgr.num_free())
+                    if feed_open:        # serving: arrivals break chains
+                        poll_feed()
+                    update_live_stats()  # per-link snapshot
                     if stream_cap and len(pending) >= stream_cap:
                         break
-                    if on_finish is not None and will_free:
+                    if cancel_pending():
+                        break
+                    if (feed_open or on_finish is not None) and will_free:
                         break   # deliver the finishing row now
                     if queue_blocked and \
                             (will_free or window < page.max_context
@@ -986,22 +1350,31 @@ class InferenceEngine:
                     progressed = True
                     flush_deferred()
                     t_m0 = time.monotonic()
-                    # one device→host copy for the whole chain
-                    all_picks = torch.stack(
-                        [t for t, _ in pending]).cpu().numpy()
+                    # one device→host copy for the whole chain: tokens and
+                    # logprobs together
+                    all_picks, all_lps = _fetch(
+                        torch.stack([t for t, _, _ in pending]),
+                        torch.stack([p for _, p, _ in pending])
+                        if want_lp else None)
                     tacc["materialize"] += time.monotonic() - t_m0
-                    for picks, (_, stepped) in zip(all_picks, pending):
+                    for li, (picks, (_, _, stepped)) in enumerate(
+                            zip(all_picks, pending)):
                         for slot, keep in stepped:
                             req = sched.running.get(slot)
                             if req is None or req.stopped:
                                 continue   # finished at its first token
                             req.generated.extend(int(t)
                                                  for t in picks[:keep, slot])
+                            if req.logprobs and all_lps is not None:
+                                req.logprob_values.extend(
+                                    float(v)
+                                    for v in all_lps[li, :keep, slot])
                             decode_tokens += keep
-                    for slot in {s for _, st in pending for s, _ in st}:
+                    for slot in {s for _, _, st in pending for s, _ in st}:
                         req = sched.running.get(slot)
                         if req is not None:
                             decode_tokens -= apply_stop(req)
+                            notify_tokens(req)
                     for slot in list(sched.running):
                         if sched.running[slot].done:
                             mgr.free_prompt(slot)
@@ -1064,18 +1437,27 @@ class InferenceEngine:
                     # stream is consumed per stepped row, in order
                     step_reqs = [sched.running[s] for s in stepped_s]
                     t_m0 = time.monotonic()
-                    step_logits = logits[torch.tensor(stepped_s, device=dev)]
-                    if any(_has_overrides(r) for r in step_reqs):
+                    step_logits = logits[to_device(torch.tensor(stepped_s),
+                                                   dev)]
+                    if any(_has_overrides(r) or _has_penalties(r)
+                           for r in step_reqs):
                         row_toks = _sample_rows_per_request(
                             sampler, step_logits, step_reqs)
                     else:
                         row_toks = _sample_rows(sampler, step_logits,
                                                 len(stepped_s))
+                    lrows = (_host(step_logits)
+                             if any(r.logprobs for r in step_reqs) else None)
                     tacc["materialize"] += time.monotonic() - t_m0
-                    for slot, tok in zip(stepped_s, row_toks):
+                    for i, (slot, tok) in enumerate(zip(stepped_s,
+                                                        row_toks)):
                         req = sched.running[slot]
                         req.generated.append(tok)
+                        if req.logprobs:
+                            req.logprob_values.append(
+                                _row_logprob(lrows[i], tok))
                         apply_stop(req)
+                        notify_tokens(req)
                         if req.done:
                             mgr.free_prompt(slot)
                             finish_slot(slot)
@@ -1086,6 +1468,7 @@ class InferenceEngine:
                     "request (need a larger page pool or shorter prompts)")
 
         self._pool_cache = pool
+        update_live_stats()
         dt = time.monotonic() - t_start
         self.stats = {
             "wall_s": dt,
@@ -1094,6 +1477,8 @@ class InferenceEngine:
             "decode_tok_per_s": decode_tokens / dt if dt > 0 else 0.0,
             "peak_pages_used": peak_pages,
             "preemptions": sched.preempt_count,
+            # the last 1024 finishes: exact for batch runs, a recent
+            # window for long-lived serving
             "p50_ttft_s": float(np.median(ttfts)) if ttfts else 0.0,
             "t_prefill_dispatch_s": round(tacc["prefill_dispatch"], 4),
             "t_chain_dispatch_s": round(tacc["chain_dispatch"], 4),
@@ -1120,3 +1505,45 @@ class InferenceEngine:
                 prefix_stats["registered"]
             self.stats["prefix_cached_pages"] = mgr.num_cached()
         return sched.finished
+
+    def warmup(self, window: Optional[int] = None) -> Dict[str, float]:
+        """Run the JAX package's throwaway requests through every path
+        this engine's configuration can reach (the smallest prefill
+        bucket and the decode chain or single-token step, then the
+        logprobs and prompt-logprobs variants when serve_logprobs), so
+        that the first tenant of a server pays none of the first-use
+        costs: on the card, the CUDA kernels build (all three serving
+        sources at once, "build") and the caching allocator warms.
+        Returns {stage: seconds}."""
+        if self.econf.cache_mode != "paged":
+            return {}
+        timings: Dict[str, float] = {}
+        if self.device.type == "cuda" and self.use_kernel:
+            from llmc_paged_tpu_torch.ops import _build
+            t0 = time.monotonic()
+            _build.build_all(("paged_attention", "paged_attention_mq",
+                              "paged_attention_grid"))
+            timings["build"] = round(time.monotonic() - t0, 3)
+        prompt = list(range(1, 9))      # bucket 16, any ids work
+        new = max(2, min(self.econf.decode_chunk + 2,
+                         self.econf.page.max_context - len(prompt)))
+
+        def one(tag: str, **kw) -> None:
+            t0 = time.monotonic()
+            # stop_tokens=[] overrides an engine default: a junk pick on a
+            # stop id would finish the request at prefill and the decode
+            # path would never run
+            self.run([Request(rid=-1, prompt=list(prompt),
+                              max_new_tokens=new, stop_tokens=[], **kw)],
+                     window=window)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            timings[tag] = round(time.monotonic() - t0, 3)
+
+        one("default")                  # prefill bucket + chunk/step path
+        if self.econf.serve_logprobs:
+            if self.econf.spec_k < 2:
+                one("logprobs", logprobs=True)
+            if not self.econf.page.prefix_cache:
+                one("prompt_logprobs", prompt_logprobs=True)
+        return timings

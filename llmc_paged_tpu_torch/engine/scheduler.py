@@ -7,10 +7,6 @@ llmc_paged_tpu/engine/scheduler.py.
     preempts a sequence; the victim keeps its generated tokens and is
     requeued for recompute-style re-admission (its next prefill covers
     prompt + generated-so-far).
-
-Request fields for options outside this slice of the port (streaming,
-logprobs, penalties) are kept so requests carry over; the port's engine
-rejects a request that sets one.
 """
 
 from __future__ import annotations
@@ -34,7 +30,8 @@ class Request:
     max_new_tokens: int
     generated: List[int] = dataclasses.field(default_factory=list)
     state: State = State.WAITING
-    # streaming flag of the JAX package's serving front (a later slice)
+    # streaming consumer attached (run(on_tokens=...)): decode chains cap
+    # at EngineConfig.stream_links while this request runs
     stream: bool = False
     # generation stops after the first of these token ids appears (the id
     # is kept as the last generated token); None -> EngineConfig default.
@@ -50,16 +47,29 @@ class Request:
     # admission priority: higher admits sooner; FIFO within a class.
     # Preemption victims stay LRU (block manager policy).
     priority: int = 0
-    # logprobs and penalties: a later slice of the port (the engine
-    # raises NotImplementedError when one is set)
+    # when True, logprob_values[i] is generated[i]'s log-probability under
+    # the model's RAW softmax (independent of temperature/top-k). Paged
+    # serving only; not under spec_k.
     logprobs: bool = False
     logprob_values: List[float] = dataclasses.field(default_factory=list)
+    # when True, prompt_logprob_values[i] is prompt[i+1]'s logprob given
+    # prompt[:i+1], from the full-T logits of its first admission's
+    # prefill. Paged only; not with prefix caching; the prompt must fit
+    # the window.
     prompt_logprobs: bool = False
     prompt_logprob_values: List[float] = dataclasses.field(
         default_factory=list)
+    # the pick is taken from logits - frequency_penalty*count
+    # - presence_penalty*(count > 0), counts over the FULL context
+    # (prompt + generated); logprob_values stay raw-softmax. Not under
+    # spec_k.
     frequency_penalty: float = 0.0
     presence_penalty: float = 0.0
-    # a request cancelled before run() finishes at once, with no tokens
+    # abort flag, settable from any thread: the engine notices at its next
+    # host-side poll point (iteration top, or a chain's materialization),
+    # frees the slot and pages, and finishes the request without further
+    # tokens (ServingEngine.cancel resolves its future with
+    # CancelledError)
     cancelled: bool = False
     slot: Optional[int] = None
     preemptions: int = 0

@@ -11,7 +11,8 @@ tables; a row whose page is ``num_pages`` (the drop sentinel) is left
 out. Torch has no scatter ``mode="drop"``: the sentinel rows are
 filtered out before each indexed write (on the CPU the write would raise
 and on the card it would land out of bounds). Coordinates built on the
-host (as the engine builds them) filter without a device sync.
+host (as the engine builds them) filter on the host and go up through
+pinned memory without blocking (``to_device``): no device sync.
 Coordinates built on the device (the speculative commit) hold no
 sentinel and pass ``sentinel=False``: nothing is filtered, so the write
 costs no sync either.
@@ -91,12 +92,22 @@ def init_pool(cfg: GPT2Config, page: PageConfig, dtype="float32",
     return PagePool(zeros(dtype), zeros(dtype))
 
 
+def to_device(t, dev) -> torch.Tensor:
+    """``t`` on ``dev`` without blocking the host: a CPU tensor bound for
+    the card is staged in pinned memory and copied asynchronously (a copy
+    from pageable memory waits for the stream to drain)."""
+    t = torch.as_tensor(t)
+    if t.device.type == "cpu" and torch.device(dev).type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 def _kept(pages: torch.Tensor, num_pages: int, device):
     """(row indices, page ids) of the rows whose page is a real page,
     flattened, on ``device`` — the drop-sentinel rows left out."""
     flat = pages.reshape(-1)
     sel = torch.nonzero((flat >= 0) & (flat < num_pages)).squeeze(1)
-    return sel.to(device), flat[sel].long().to(device)
+    return to_device(sel, device), to_device(flat[sel].long(), device)
 
 
 def token_coords(block_tables: torch.Tensor, positions: torch.Tensor,
@@ -173,9 +184,9 @@ def _rows(page, slot, num_pages, device, sentinel):
     and nothing is read back from the device."""
     if sentinel:
         sel, pg = _kept(page, num_pages, device)
-        return sel, pg, slot.reshape(-1).to(device)[sel].long()
-    return (slice(None), page.reshape(-1).to(device).long(),
-            slot.reshape(-1).to(device).long())
+        return sel, pg, to_device(slot.reshape(-1), device)[sel].long()
+    return (slice(None), to_device(page.reshape(-1), device).long(),
+            to_device(slot.reshape(-1), device).long())
 
 
 def write_layer_kv(k_pool_l, v_pool_l, k_new, v_new, page, slot,

@@ -4,7 +4,9 @@ of llmc_paged_tpu/models/gpt2_paged.py).
   * prefill_paged: one padded batched prompt forward that writes whole
     pages into the pool and, with ``last_pos``, projects logits only at
     each row's last prompt position;
-  * decode_chunk_paged: K greedy steps in one call. The pool is READ-ONLY
+  * decode_chunk_paged: K decode steps in one call, greedy or sampled on
+    the device (temperature/top-k, per-row overrides, penalties over a
+    (B, V) count plane, raw-softmax logprobs). The pool is READ-ONLY
     during the chunk; each step's K/V goes into per-layer (K, B, NH, HS)
     tails, attention merges the pool prefix (the paged parts kernel) with
     the tail, and each layer's tail is committed once after the K steps;
@@ -19,9 +21,10 @@ of llmc_paged_tpu/models/gpt2_paged.py).
 
 The layer and step loops are Python loops run eagerly. Pool updates are
 in place. Index tensors may be passed on the CPU or on the pool's
-device: block tables, lengths and tokens move to the device; pool
-coordinates (page/slot) are filtered where they lie, so coordinates
-built on the host cost no device sync.
+device: block tables, lengths and tokens go up through pinned memory
+without blocking (kv.layouts.to_device); pool coordinates (page/slot)
+are filtered where they lie, so coordinates built on the host cost no
+device sync either.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from llmc_paged_tpu_torch.kv.layouts import (
     commit_layer_kv,
     commit_layer_kv_quant,
     prompt_page_ids,
+    to_device,
     write_layer_kv,
     write_layer_kv_quant,
     write_prompt_pages,
@@ -64,16 +68,6 @@ def _dev(params) -> torch.device:
     return params["wpe"].device
 
 
-def to_device(t, dev) -> torch.Tensor:
-    """``t`` on ``dev`` without blocking the host: a CPU tensor bound for
-    the card is staged in pinned memory and copied asynchronously (a copy
-    from pageable memory waits for the stream to drain)."""
-    t = torch.as_tensor(t)
-    if t.device.type == "cpu" and torch.device(dev).type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.to(dev)
-
-
 @torch.no_grad()
 def decode_step_paged(params, tokens, positions, page, slot, block_tables,
                       lengths, pool: PagePool, cfg: GPT2Config,
@@ -86,10 +80,11 @@ def decode_step_paged(params, tokens, positions, page, slot, block_tables,
     row INCLUDING the new one (inactive rows 0); starts (B,) optional
     window lower bounds. Returns (logits (B, V), pool)."""
     dev = _dev(params)
-    tokens, positions = tokens.to(dev), positions.to(dev)
-    block_tables, lengths = block_tables.to(dev), lengths.to(dev)
+    tokens, positions, block_tables, lengths = (
+        to_device(t, dev) for t in (tokens, positions, block_tables,
+                                    lengths))
     starts = (torch.zeros_like(lengths) if starts is None
-              else starts.to(dev))
+              else to_device(starts, dev))
     B = tokens.shape[0]
     x = gpt2._embed(params, tokens, positions)
     quant = isinstance(pool, QuantPagePool)
@@ -158,24 +153,96 @@ def _chunk_attention(q, pool_l, tail_k, tail_v, block_tables, lengths_pool,
     return _merge_parts(acc_p, m_p, l_p, acc_t, m_t, l_t, q.dtype)
 
 
+def _pick(logits, counts, rng, top_k, temperature, k_arr, greedy_rows,
+          freq_pen, pres_pen):
+    """A chunk sub-step's token choice (the JAX chunk's ``pick``): the
+    penalty subtraction, then greedy argmax (``rng`` None) or a draw from
+    the temperature/top-k transform of the f32 logits. The draw is the
+    Gumbel-max trick, argmax(lg - log(-log(u))) with u from ``rng`` on
+    the logits' device (the distribution of jax.random.categorical, not
+    its bits); it reads nothing back, so a link stays free of host
+    synchronization; ``rng`` advances with each draw, in the place of
+    the JAX chunk's per-step fold_in."""
+    if counts is not None:
+        logits = (logits.float() - freq_pen[:, None] * counts
+                  - pres_pen[:, None] * (counts > 0))
+    if rng is None:
+        return torch.argmax(logits, dim=-1).int()
+    temp = (temperature[:, None] if torch.is_tensor(temperature)
+            and temperature.dim() == 1 else temperature)
+    lg = logits.float() / temp
+    if top_k is not None and 0 < top_k < lg.shape[-1]:
+        vals = torch.topk(lg, top_k, dim=-1).values           # (B, top_k)
+        if k_arr is None:
+            lg = torch.where(lg < vals[:, -1:], -torch.inf, lg)
+        else:
+            # per-row k (0 = no filter), clamped to the static cap
+            kc = torch.clamp(k_arr, 1, top_k).long()
+            kth = torch.gather(vals, 1, kc[:, None] - 1)
+            lg = torch.where((k_arr > 0)[:, None] & (lg < kth),
+                             -torch.inf, lg)
+    u = torch.rand(lg.shape, generator=rng, device=lg.device)
+    u = u.clamp(torch.finfo(torch.float32).tiny, 1.0 - 2.0 ** -24)
+    samp = torch.argmax(lg - torch.log(-torch.log(u)), dim=-1).int()
+    if greedy_rows is not None:
+        samp = torch.where(greedy_rows,
+                           torch.argmax(logits, dim=-1).int(), samp)
+    return samp
+
+
 @torch.no_grad()
 def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
                        block_tables, pool: PagePool, cfg: GPT2Config,
-                       num_steps: int, window: int, use_kernel: bool = True):
-    """K = num_steps greedy decode steps in one call.
+                       num_steps: int, window: int, use_kernel: bool = True,
+                       rng=None, top_k=None, temperature=1.0, k_arr=None,
+                       greedy_rows=None, want_logprobs: bool = False,
+                       pen_counts=None, freq_pen=None, pres_pen=None):
+    """K = num_steps decode steps in one call.
 
     first_tokens (B,) the token fed at sub-step 0 (may be a device tensor
     from a previous call: tokens feed back without a host round trip);
     positions0 (B,) its position (< 0: row inactive for the whole chunk);
     pages/slots (K, B) pool coordinates reserved ahead for each sub-step;
-    block_tables the final tables including the reserved pages. Returns
-    (tokens (K, B) int32 on the device — each sub-step's argmax — and the
-    pool). Greedy only (device sampling, logprobs and penalties are later
-    slices of the port)."""
+    block_tables the final tables including the reserved pages. Host
+    inputs go up through pinned memory without blocking, so a call makes
+    no synchronizing CUDA call.
+
+    Token choice: greedy argmax when ``rng`` is None; otherwise a draw
+    on the device from ``rng`` (a torch.Generator on the pool's device)
+    under the temperature/top-k transform, in f32 (top-k masks
+    ``lg < kth``, so ties at the k-th value stay in). Per-request
+    sampling: ``temperature`` may be a (B,) tensor; ``k_arr`` (B,) gives
+    each row's top-k (0 = no filter) with the static ``top_k`` as the cap
+    rows clamp to; ``greedy_rows`` (B,) bool takes those rows' argmax.
+    Penalties: ``pen_counts`` (B, V) int32 token counts over the full
+    context, updated on the device with each pick; the pick is taken
+    from logits - freq_pen*counts - pres_pen*(counts > 0), greedy or
+    sampled. ``want_logprobs`` adds each chosen token's logprob under
+    the RAW softmax (f32 logsumexp).
+
+    Returns (out[, counts][, logps], pool), the JAX convention: out
+    (K, B) int32 on the device; counts (B, V) the updated plane when
+    ``pen_counts`` is given; logps (K, B) f32 when ``want_logprobs``."""
+    if rng is not None and isinstance(temperature, (int, float)) \
+            and temperature == 0:
+        # a temperature of 0 would divide the logits by zero and draw
+        # arbitrary tokens with no error; the engine maps it to greedy
+        raise ValueError("temperature=0 with device sampling: use greedy "
+                         "(rng=None) instead")
     dev = _dev(params)
-    toks = first_tokens.to(dev)
-    positions0 = positions0.to(dev)
-    block_tables = block_tables.to(dev)
+    toks = to_device(first_tokens, dev).int()
+    positions0 = to_device(positions0, dev)
+    block_tables = to_device(block_tables, dev)
+    if not isinstance(temperature, (int, float)):        # (B,) per row
+        temperature = to_device(temperature, dev).float()
+    k_arr = None if k_arr is None else to_device(k_arr, dev)
+    greedy_rows = (None if greedy_rows is None
+                   else to_device(greedy_rows, dev))
+    counts = None
+    if pen_counts is not None:
+        counts = to_device(pen_counts, dev).int()
+        freq_pen = to_device(freq_pen, dev).float()
+        pres_pen = to_device(pres_pen, dev).float()
     active = positions0 >= 0
     safe_pos0 = torch.where(active, positions0, 0).int()
     B = toks.shape[0]
@@ -188,7 +255,7 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
     tvs = [torch.zeros_like(t) for t in tks]
     lengths_pool = safe_pos0                # pool reads: completed prefix
 
-    out = []
+    out, logps = [], []
     for j in range(num_steps):
         pos = safe_pos0 + j
         wpe_pos = torch.clamp(pos, max=window - 1)
@@ -205,7 +272,16 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
                 return att.reshape(B, C)
 
             x = gpt2._block(x, gpt2._layer(stack, i), cfg, attend)
-        toks = torch.argmax(gpt2._logits(x, params, cfg), dim=-1).int()
+        logits = gpt2._logits(x, params, cfg)
+        toks = _pick(logits, counts, rng, top_k, temperature, k_arr,
+                     greedy_rows, freq_pen, pres_pen)
+        if counts is not None:
+            counts.scatter_add_(1, toks.long()[:, None],
+                                torch.ones_like(toks)[:, None])
+        if want_logprobs:
+            lf = logits.float()
+            logps.append(torch.gather(lf, 1, toks.long()[:, None])[:, 0]
+                         - torch.logsumexp(lf, dim=-1))
         out.append(toks)
 
     # commit the chunk's K/V, one indexed write per layer (int8 pools
@@ -215,7 +291,12 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
             commit_layer_kv_quant(pool.layer(i), tks[i], tvs[i], pages, slots)
         else:
             commit_layer_kv(*pool.layer(i), tks[i], tvs[i], pages, slots)
-    return torch.stack(out), pool
+    ret = (torch.stack(out),)
+    if counts is not None:
+        ret += (counts,)
+    if want_logprobs:
+        ret += (torch.stack(logps),)
+    return ret + (pool,)
 
 
 def _ngram_draft(hist: torch.Tensor, hl: torch.Tensor, n: int,
@@ -418,7 +499,7 @@ def prefill_paged(params, tokens, page, slot, pool: PagePool,
     None → (B, T, V). Returns (logits, pool)."""
     del slot
     dev = _dev(params)
-    tokens = tokens.to(dev)
+    tokens = to_device(tokens, dev)
     B, T = tokens.shape
     x = gpt2._embed(params, tokens, torch.arange(T, device=dev)[None])
     quant = isinstance(pool, QuantPagePool)
@@ -445,7 +526,7 @@ def prefill_paged(params, tokens, page, slot, pool: PagePool,
         x = gpt2._block(x, gpt2._layer(stack, i), cfg, attend)
 
     if last_pos is not None:
-        x = x[torch.arange(B, device=dev), last_pos.to(dev).long()]
+        x = x[torch.arange(B, device=dev), to_device(last_pos, dev).long()]
     return gpt2._logits(x, params, cfg), pool
 
 
@@ -474,9 +555,9 @@ def prefill_suffix_paged(params, tokens, page, slot, pool: PagePool,
     pool)."""
     del slot
     dev = _dev(params)
-    tokens = tokens.to(dev)
-    block_tables = block_tables.to(dev)
-    pool_len = pool_len.to(dev).int()
+    tokens = to_device(tokens, dev)
+    block_tables = to_device(block_tables, dev)
+    pool_len = to_device(pool_len, dev).int()
     B, T = tokens.shape
     pos = pool_len[:, None] + torch.arange(T, device=dev)[None, :]
     x = gpt2._embed(params, tokens,
@@ -507,5 +588,5 @@ def prefill_suffix_paged(params, tokens, page, slot, pool: PagePool,
 
         x = gpt2._block(x, gpt2._layer(stack, i), cfg, attend)
 
-    x = x[torch.arange(B, device=dev), last_pos.to(dev).long()]
+    x = x[torch.arange(B, device=dev), to_device(last_pos, dev).long()]
     return gpt2._logits(x, params, cfg), pool

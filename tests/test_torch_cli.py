@@ -3,8 +3,9 @@ checkpoint written to tmp_path (LLMC_PLATFORM=cpu; JAX with --no-kernel):
 the --json tokens are equal for sampled and greedy batches at page sizes
 32 (the default) and 8, the three --mode values, and a sliding window.
 One subprocess run shows that ``python -m llmc_paged_tpu_torch.engine.cli``
-works; flags the port does not serve yet exit with an error naming their
-ROADMAP item."""
+works; --serve, --warmup, --max-pending, --device-sampling and --profile
+run, and --mesh-model, not in the port yet, exits with an error naming
+its ROADMAP item."""
 
 import contextlib
 import io
@@ -21,7 +22,10 @@ from llmc_paged_tpu.engine import cli as JC
 from llmc_paged_tpu_torch import formats as TF
 from llmc_paged_tpu_torch.engine import cli as TC
 from llmc_paged_tpu_torch.tokenizer import byte_fallback_table
+from test_torch_common import one_thread  # noqa: F401
 from test_torch_common import params_np, port_cfg
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -101,11 +105,69 @@ def test_cli_module_entry_point(files, cpu_env):
 @pytest.mark.parametrize("flag", ["--serve=8000", "--warmup",
                                   "--max-pending=4", "--device-sampling",
                                   "--mesh-model=2", "--profile=trace"])
-def test_cli_flags_outside_the_port_exit(files, cpu_env, capsys, flag):
-    with pytest.raises(SystemExit) as exc:
-        TC.main(files + [flag])
-    assert exc.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+def test_cli_flags_outside_the_port_exit(files, cpu_env, capsys, tmp_path,
+                                         monkeypatch, flag):
+    """Of the flags that once exited for want of their ROADMAP item, only
+    --mesh-model (tensor parallelism) still does; the others run as in
+    the JAX package's CLI (--serve hands the engine to serve_http with
+    the port, --max-pending and --window; --warmup and --max-pending
+    without --serve change nothing; --profile writes its trace)."""
+    from llmc_paged_tpu_torch.engine import http_server
+    if flag == "--mesh-model=2":
+        with pytest.raises(SystemExit) as exc:
+            TC.main(files + [flag])
+        assert exc.value.code == 2
+        assert "ROADMAP" in capsys.readouterr().err
+        return
+    served = {}
+    monkeypatch.setattr(http_server, "serve_http",
+                        lambda engine, **kw: served.update(kw, engine=engine))
+    if flag.startswith("--profile"):
+        flag = f"--profile={tmp_path / 'trace'}"
+    argv = files + ["--batch=2", "--prompt-size=8", "--max-new=6", flag]
+    if flag == "--serve=8000":
+        assert TC.main(argv + ["--max-pending=3", "--warmup"]) == 0
+        assert served["port"] == 8000 and served["max_pending"] == 3
+        assert served["window"] is None
+        assert served["engine"].device.type == "cpu"
+        assert "warmup: {" in capsys.readouterr().out
+        return
+    out = _json(TC.main, argv + ["--json"])
+    assert not served
+    assert all(len(t) == 14 for t in out["tokens"].values())
+    if flag == "--device-sampling":
+        # a sampled batch chains under device sampling
+        assert out["stats"]["single_steps"] == 0
+        assert out["stats"]["decode_steps"] > 0
+
+
+def test_cli_profile_writes_a_trace(files, cpu_env, tmp_path):
+    """--profile DIR writes a Chrome trace of the run with the engine's
+    CPU activity in it, and stops the trace when the run fails."""
+    d = tmp_path / "prof"
+    _json(TC.main, files + ["--batch=2", "--prompt-size=8", "--max-new=6",
+                            "--greedy", f"--profile={d}", "--json"])
+    trace = json.loads((d / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("aten::" in n for n in names)
+    # a failing run (a window larger than the model's context) still
+    # leaves its trace behind
+    d2 = tmp_path / "prof_fail"
+    with pytest.raises(ValueError, match="window"):
+        TC.main(files + ["--batch=2", "--prompt-size=8", "--max-new=6",
+                         "--window=100000", f"--profile={d2}"])
+    assert json.loads((d2 / "trace.json").read_text())["traceEvents"]
+
+
+def test_cli_device_sampling_chains_equal_greedy_at_top1(files, cpu_env):
+    """--device-sampling --top-k 1 gives the greedy streams of the JAX
+    CLI, through the chained path."""
+    argv = files + ["--batch=3", "--prompt-size=12", "--max-new=10",
+                    "--pages-per-seq=4", "--json"]
+    got = _json(TC.main, argv + ["--device-sampling", "--top-k=1"])
+    want = _json(JC.main, argv + ["--greedy", "--no-kernel"])
+    assert got["tokens"] == want["tokens"]
+    assert got["stats"]["single_steps"] == 0
 
 
 def test_cli_platform(files, monkeypatch):

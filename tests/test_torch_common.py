@@ -55,3 +55,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (kernel-vs-plain runs on the card)")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for a module's tiny CPU runs. The serving tests
+    run the engine on a background thread beside HTTP threads; under a
+    parallel test run, torch's default thread pool (one thread a core in
+    every worker) oversubscribes the CPU and slows them a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+

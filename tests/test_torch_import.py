@@ -52,6 +52,8 @@ def test_no_source_names_jax_or_the_jax_package():
     assert len(files) > 10
     assert {os.path.join(PKG, "ops", "dev", n) for n in
             ("lab_full_pool.py", "probe_decode.py")} <= set(files)
+    assert {os.path.join(PKG, "engine", n) for n in
+            ("server.py", "http_server.py")} <= set(files)
     hits = []
     for f in files:
         with open(f) as fh:
@@ -89,6 +91,8 @@ def test_entry_points_default_to_the_card():
 
 
 def test_options_outside_the_slice_raise():
+    """Only tensor parallelism (mesh_shape) is outside the port now:
+    device sampling, logprobs, penalties and the serving hooks run."""
     import dataclasses
 
     from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config, \
@@ -101,22 +105,23 @@ def test_options_outside_the_slice_raise():
                               device="cpu")
     base = EngineConfig(greedy=True, page=PageConfig(page_size=8,
                                                      pages_per_seq=4))
-    for change in (dict(mesh_shape={"model": 2}),
-                   dict(device_sampling=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine(params, cfg, dataclasses.replace(base, **change),
-                            device="cpu")
-    # speculative decode, prefix caching, host sampling and the dense and
-    # no-cache modes are in the port: they build
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InferenceEngine(params, cfg, dataclasses.replace(
+            base, mesh_shape={"model": 2}), device="cpu")
+    # speculative decode, prefix caching, host and device sampling and
+    # the dense and no-cache modes are in the port: they build
     for change in (dict(spec_k=2), dict(spec_k=4, page=dataclasses.replace(
             base.page, prefix_cache=True)), dict(greedy=False),
-            dict(cache_mode="dense"), dict(cache_mode="none")):
+            dict(device_sampling=True), dict(cache_mode="dense"),
+            dict(cache_mode="none")):
         InferenceEngine(params, cfg, dataclasses.replace(base, **change),
                         device="cpu")
     eng = InferenceEngine(params, cfg, base, device="cpu")
-    for kw in (dict(logprobs=True), dict(frequency_penalty=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.run([Request(rid=0, prompt=[1, 2], max_new_tokens=2, **kw)])
+    for kw in (dict(logprobs=True), dict(prompt_logprobs=True),
+               dict(frequency_penalty=0.5), dict(presence_penalty=0.5)):
+        done = eng.run([Request(rid=0, prompt=[1, 2], max_new_tokens=2,
+                                **kw)])
+        assert len(done[0].generated) == 2
     # a per-request sampling override runs; invalid values are refused
     done = eng.run([Request(rid=0, prompt=[1, 2], max_new_tokens=2,
                             temperature=0.7)])
@@ -124,6 +129,9 @@ def test_options_outside_the_slice_raise():
     for kw in (dict(temperature=-1.0), dict(top_k=0)):
         with pytest.raises(ValueError):
             eng.run([Request(rid=0, prompt=[1, 2], max_new_tokens=2, **kw)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run([Request(rid=0, prompt=[1, 2], max_new_tokens=2)],
-                on_tokens=lambda r, t: None)
+    # the serving hooks: on_tokens sees every token, feed admits
+    seen = []
+    reqs = [Request(rid=0, prompt=[1, 2], max_new_tokens=3)]
+    done = eng.run([], on_tokens=lambda r, t: seen.extend(t),
+                   feed=lambda block: (reqs and [reqs.pop()], bool(reqs)))
+    assert done == [] and len(seen) == 3
