@@ -5,7 +5,7 @@
 
 Phases (any failed check raises, and the script exits non-zero):
   1. device: name, power limit, torch/CUDA versions; TF32 off;
-  2. build: the eight CUDA kernel sources in the checkout, one nvcc per
+  2. build: the nine CUDA kernel sources in the checkout, one nvcc per
      source, all started together;
   3. kernels vs plain versions: the flash-decode parts kernel, the
      multi-query parts kernel and the normalized grid kernel against their
@@ -27,7 +27,8 @@ Phases (any failed check raises, and the script exits non-zero):
   4. engine, headline config: GPT-2 124M (seeded random weights) served
      by InferenceEngine.run with int8 weights, int8 KV, bf16 activations,
      a bf16 prefill copy, page_size 128 and greedy 16-token chunks;
-     8 requests of 128-token prompts, 128 new tokens each;
+     8 requests of 128-token prompts, 128 new tokens each; no flash
+     launch (T = 128 stays dense, as in the JAX package);
   5. fp32 engine, kernel route vs plain route: token streams, and the
      logits of one decode_step_paged on both routes;
   6. loaded queue: 16 mixed-length requests through 8 slots with a pool
@@ -70,7 +71,9 @@ Phases (any failed check raises, and the script exits non-zero):
      softmax cluster size the rule picks at each lab shape, and softmax
      at clusters of 1, 4, 8 and 16 blocks at (8, 50304);
  12. the decode-step probe (ops/dev/probe_decode.py main, in process):
-     every suite at --model 124m, then the GEMV and kernel suites at
+     every suite at --model 124m (the prefill at T 128, 256, 896 and
+     1024, a dense line beside each flash one), then the GEMV and kernel
+     suites at
      --model 1558m; one log line a suite with its seconds (the full
      tables go to build/chip_smoke_probe.txt); the paged-attention
      launches equal the calls the probe made; then one torch.profiler
@@ -95,9 +98,25 @@ Phases (any failed check raises, and the script exits non-zero):
      tok/s, p50 TTFT, launches = L x chained steps, no single step;
      host ms a chunk step of a batch run beside phase 4's greedy chain;
      0 synchronizing CUDA calls in one bare device-sampled link.
+ 14. (run after phase 13, before phases 11 and 12) the long-prompt bf16
+     prefill through the flash kernel (csrc/flash_attention.cu): the
+     kernel against its plain version (2^-7 |plain| + 2e-3) and the f32
+     dense attention (2e-2) at (B, NH, T) = (1, 12, 256), (8, 12, 896),
+     (8, 12, 1024), (8, 25, 896) and (2, 25, 1024), timed beside its
+     plain version, the dense bf16 route, SDPA's flash backend (the
+     yardstick, never called by the port) and its bound; its refusals;
+     0 flash launches for an fp32 and a use_kernel=False prefill at
+     T = 896; a GPT-2 124M prefill of 8 x 896 (bf16 weights, int8 pool)
+     no further from the f32 prefill than the dense route is (x 1.25 +
+     1e-3); the long-context engine (int8, bf16 prefill copy, pps 9,
+     8 x (896 + 128), greedy) on three routes (the kernel route, a
+     dense prefill beside the decode kernels, use_kernel=False): flash
+     launches = L x prefill waves on the first, 0 on the others, TTFT
+     and tok/s; at 1558M a prefill of 8 x 896 (48 launches, ms a call on
+     both routes) and the engine with 32 new tokens on the three routes.
 Every kernel time is the lab harness's: CUDA events over launches queued
 behind a sleep kernel, the median of 3 runs.
-The line before the last is a JSON object {"kernels": [...]} (fourteen
+The line before the last is a JSON object {"kernels": [...]} (fifteen
 wrappers); the last line is {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a GPU or outside a checkout
@@ -129,9 +148,11 @@ MQ_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention_mq.cu"
 MQ_TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:481"
 GRID_SOURCE = "llmc_paged_tpu_torch/csrc/paged_attention_grid.cu"
 GRID_TPU_KERNEL = "llmc_paged_tpu/ops/paged_attention.py:750"
+FLASH_SOURCE = "llmc_paged_tpu_torch/csrc/flash_attention.cu"
+FLASH_TPU_KERNEL = "llmc_paged_tpu/ops/layers.py:86"
 KERNELS = ("paged_attention", "paged_attention_mq", "paged_attention_grid",
            "int8_matmul", "layernorm", "softmax", "lab_flatwide",
-           "lab_full_pool")
+           "lab_full_pool", "flash_attention")
 CSRC = "llmc_paged_tpu_torch/csrc/"
 
 
@@ -706,8 +727,17 @@ def count_syncs(torch, fn):
 
 
 def reset_counts(pa):
-    for k in pa.LAUNCHES:
-        pa.LAUNCHES[k] = 0
+    """Zero the launch counts of the serving path's wrappers: the paged
+    attention kernels and the prefill's flash kernel."""
+    from llmc_paged_tpu_torch.ops import flash_attention as fa
+    for counts in (pa.LAUNCHES, fa.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def flash_launches():
+    from llmc_paged_tpu_torch.ops import flash_attention as fa
+    return fa.LAUNCHES["causal_attention_flash"]
 
 
 def run_cli(cli, argv):
@@ -1139,6 +1169,298 @@ def phase_serving(torch, pa, params32, cfg, device, greedy_host_ms):
     return launches["paged_decode_attention_quant_parts"]
 
 
+# ---- phase 14: the long-prompt prefill ---------------------------------------
+
+# (B, NH, T) the flash kernel is held against its plain version at: the
+# smallest prefill that takes it, the 124M long-context wave (896) and a
+# 1024-token one, and the 1558M head count; the JSON line takes FLASH_MAIN
+FLASH_SHAPES = ((1, 12, 256), (8, 12, 896), (8, 12, 1024), (8, 25, 896),
+                (2, 25, 1024))
+FLASH_MAIN = (8, 12, 896)
+LONG_PROMPT, LONG_NEW, LONG_NEW_1558M = 896, 128, 32
+
+
+def flash_cost(B, NH, T, HS=64):
+    """(bytes, operations) of one causal flash call: q, k, v read and out
+    written once in bf16; the two products over the key/query pairs at or
+    below the diagonal."""
+    return 4 * B * NH * T * HS * 2, 4 * HS * B * NH * T * (T + 1) // 2
+
+
+@contextlib.contextmanager
+def counting_calls(module, name):
+    """Count the calls of module.name (the engine's prefill waves)."""
+    fn, calls = getattr(module, name), [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return fn(*a, **kw)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def flash_kernel_checks(torch, device):
+    """Item 1: the kernel against its plain version and the f32 dense
+    attention at FLASH_SHAPES, its refusals, and its time beside the
+    plain version's, the dense bf16 route's, SDPA's flash backend (the
+    yardstick) and the bound. Returns the FLASH_MAIN record."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from llmc_paged_tpu_torch.ops import flash_attention as fa
+    from llmc_paged_tpu_torch.ops.layers import causal_attention
+    g = torch.Generator(device=device)
+    main = None
+    for B, NH, T in FLASH_SHAPES:
+        g.manual_seed(B * 1000 + NH * 10 + T)
+        q, k, v = (torch.randn((B, NH, T, 64), generator=g, device=device)
+                   .bfloat16() for _ in range(3))
+        got = fa.causal_attention_flash(q, k, v)
+        plain = fa.causal_attention_flash_ref(q, k, v)
+        dense32 = causal_attention(q.float(), k.float(), v.float())
+        torch.cuda.synchronize()
+        d = (got.float() - plain.float()).abs()
+        within = bool((d <= 2.0 ** -7 * plain.float().abs() + 2e-3).all())
+        err = float(d.max())
+        err32 = float((got.float() - dense32).abs().max())
+        check(within and bool(torch.isfinite(got).all()),
+              f"flash ({B}, {NH}, {T}): |kernel - plain| {err:.3e} above "
+              "2^-7 |plain| + 2e-3")
+        check(err32 <= 2e-2, f"flash ({B}, {NH}, {T}): {err32:.3e} from "
+              "the f32 dense attention (tol 2e-2)")
+        del dense32
+
+        def sdpa():
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)
+
+        lib_err = float((sdpa().float() - plain.float()).abs().max())
+        ms = device_ms(lambda: fa.causal_attention_flash(q, k, v))
+        plain_ms = device_ms(lambda: fa.causal_attention_flash_ref(q, k, v),
+                             iters=5)
+        dense_ms = device_ms(lambda: causal_attention(q, k, v), iters=20)
+        lib_ms = device_ms(sdpa)
+        nbytes, ops = flash_cost(B, NH, T)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_BF16_OPS_S * 1e3
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"  flash ({B}, {NH}, {T}, 64) bf16: |kernel - plain| {err:.3e}, "
+            f"|kernel - f32 dense| {err32:.3e}, |SDPA - plain| "
+            f"{lib_err:.3e}; us a call: kernel {ms * 1e3:.2f}, plain "
+            f"{plain_ms * 1e3:.2f}, dense bf16 {dense_ms * 1e3:.2f}, SDPA "
+            f"flash {lib_ms * 1e3:.2f}, bound {rec['bound_ms'] * 1e3:.2f} by "
+            f"{rec['bound_by']} ({nbytes} B at 3.35 TB/s "
+            f"{t_bytes * 1e3:.2f} us, {ops} ops at 989 TFLOP/s "
+            f"{t_ops * 1e3:.2f} us)")
+        if (B, NH, T) == FLASH_MAIN:
+            main = rec
+        del q, k, v, got, plain
+    # refusals: no launch, no fallback
+    before = flash_launches()
+    q = torch.randn((2, 3, 384, 64), device=device).bfloat16()
+    for what, args in (
+            ("f32 q", (q.float(), q, q)),
+            ("HS 128", (torch.cat([q, q], -1),) * 3),
+            ("T 400", (torch.randn((2, 3, 400, 64), device=device)
+                       .bfloat16(),) * 3),
+            ("non-contiguous k", (q, q.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), q))):
+        try:
+            fa.causal_attention_flash(*args)
+        except (TypeError, ValueError):
+            continue
+        raise Failed(f"flash: {what} was not refused")
+    check(flash_launches() == before, "flash: a refused call launched")
+    log("  flash refuses f32 q, HS 128, T 400 and a non-contiguous k")
+    return main
+
+
+def long_prefill(torch, params, cfg, xs, kv, use_kernel, device):
+    """One prefill_paged of 8 x T prompts into a fresh pool of ``kv``
+    pages (ps 128); returns the last positions' f32 logits."""
+    from llmc_paged_tpu_torch.config import PageConfig
+    from llmc_paged_tpu_torch.kv.layouts import init_pool, token_coords
+    from llmc_paged_tpu_torch.models import gpt2_paged
+    B, T = xs.shape
+    pps = -(-T // 128)
+    page = PageConfig(page_size=128, num_pages=B * pps + 4, max_seqs=B,
+                      pages_per_seq=pps)
+    tables = torch.arange(B * pps, dtype=torch.int32).reshape(B, pps)
+    pos = torch.arange(T, dtype=torch.int32).repeat(B, 1)
+    pg, sl = token_coords(tables, pos, 128, torch.ones(B, T, dtype=bool),
+                          page.num_pages)
+    pool = init_pool(cfg, page, dtype=kv, device=device)
+    logits, _ = gpt2_paged.prefill_paged(
+        params, xs, pg, sl, pool, cfg, last_pos=torch.full((B,), T - 1),
+        use_kernel=use_kernel)
+    return logits.float()
+
+
+@contextlib.contextmanager
+def dense_prefill():
+    """The prefill attention kept dense whatever the rule says (the decode
+    kernels untouched): the route before the flash kernel existed."""
+    from llmc_paged_tpu_torch.ops import layers
+    rule = layers.takes_flash
+    layers.takes_flash = lambda q, use_kernel=True: False
+    try:
+        yield
+    finally:
+        layers.takes_flash = rule
+
+
+# the long-context engine's routes: (label, use_kernel, dense prefill)
+LONG_ROUTES = (("kernel route", True, False),
+               ("dense prefill, decode kernels", True, True),
+               ("use_kernel=False", False, False))
+
+
+def log_prefill_times(torch, model, params, cfg, xs, device):
+    """ms a prefill_paged call (bf16 weights, int8 pool) on the kernel
+    route and the dense route, in turns (kernel, dense, dense, kernel),
+    each by the probe's measure: one warm-up and 2 timed calls, host
+    clock and CUDA events behind a sleep."""
+    from llmc_paged_tpu_torch.ops.dev.probe_decode import measure
+    cells = []
+    for use_kernel in (True, False, False, True):
+        t = measure(lambda: long_prefill(torch, params, cfg, xs, "int8",
+                                         use_kernel, device),
+                    torch.device(device), 2)
+        cells.append(
+            f"{'kernel' if use_kernel else 'dense'} {t['host_ms']:.2f} / "
+            f"{t['device_ms']:.2f}"
+            + ("" if t["covered"] else " (events not covered: an upper "
+               "bound)"))
+    B, T = xs.shape
+    log(f"  {model} prefill {B} x {T}, bf16 weights + int8 pool, ms a call "
+        f"(host clock / CUDA events behind a sleep), in turns: "
+        + "; ".join(cells))
+
+
+def long_engine(torch, pa, params32, cfg, prompts, new, device):
+    """The long-context engine (int8 weights and KV, bf16 activations and
+    prefill copy, ps 128, pps 9, 8 x 9 + 4 pages, chunks of 16, greedy)
+    on each of LONG_ROUTES, a warm-up run before each; checks every
+    request's length and the flash launches (L x prefill waves on the
+    kernel route, none elsewhere); logs TTFT and tok/s. Returns the
+    kernel route's flash launches."""
+    from llmc_paged_tpu_torch.models import gpt2_paged
+    kw = dict(kv_dtype="int8", param_dtype="int8", num_pages=8 * 9 + 4,
+              pps=9)
+    L = cfg.num_layers
+    out = {}
+    for label, use_kernel, dense in LONG_ROUTES:
+        eng = make_engine(params32, cfg, use_kernel=use_kernel,
+                          device=device, **kw)
+        with dense_prefill() if dense else contextlib.nullcontext():
+            serve(torch, params32, cfg, prompts=prompts, new=4, engine=eng,
+                  **kw)                                 # warm-up
+            reset_counts(pa)
+            with counting_calls(gpt2_paged, "prefill_paged") as waves:
+                eng, done = serve(torch, params32, cfg, prompts=prompts,
+                                  new=new, engine=eng, **kw)
+        st, fl, w = eng.stats, flash_launches(), waves[0]
+        out[label] = done
+        del eng
+        check(len(done) == 8 and all(len(r.generated) == new
+                                     for r in done),
+              f"long context ({label}): not every request finished with "
+              f"{new} tokens")
+        want = L * w if label == "kernel route" else 0
+        check(w >= 1 and fl == want,
+              f"long context ({label}): {fl} flash launches for {w} "
+              f"prefill wave(s), want {want}")
+        if label == "kernel route":
+            launches = fl
+        log(f"  {label}: p50_ttft_s {st['p50_ttft_s']:.4f}, "
+            f"decode_tok_per_s {st['decode_tok_per_s']:.1f}, "
+            f"t_prefill_dispatch_s {st['t_prefill_dispatch_s']}, wall "
+            f"{st['wall_s']:.3f} s, flash launches {fl} ({w} prefill "
+            "wave(s))")
+    same = [sum(a.generated == b.generated
+                for a, b in zip(out["kernel route"], out[label]))
+            for label, _, _ in LONG_ROUTES[1:]]
+    log(f"  streams equal to the kernel route's over {new} tokens: "
+        f"{same[0]}/8 with a dense prefill, {same[1]}/8 with "
+        "use_kernel=False (not required: bf16 rounds elsewhere, int8 KV "
+        "moves by a step)")
+    return launches
+
+
+def phase_long_prefill(torch, pa, params32, cfg, device):
+    """Phase 14: the long-prompt bf16 prefill through the flash kernel.
+    Returns the kernel's JSON record (launches from the 124M
+    long-context engine's kernel route)."""
+    from llmc_paged_tpu_torch.config import GPT2Config
+    from llmc_paged_tpu_torch.models import gpt2
+    rec = flash_kernel_checks(torch, device)
+    L, V = cfg.num_layers, cfg.vocab_size
+
+    # 2-3. routing and accuracy of the whole 124M prefill at 8 x 896
+    xs = torch.tensor(prompts_for(torch, 8, [LONG_PROMPT] * 8, V, 6,
+                                  device), dtype=torch.int32)
+    p_bf16 = gpt2.to_device(params32, cfg, torch.bfloat16, device)
+    reset_counts(pa)
+    ref = long_prefill(torch, params32, cfg, xs, "float32", True, device)
+    check(flash_launches() == 0, f"fp32 prefill at T = {LONG_PROMPT}: "
+          f"{flash_launches()} flash launches (want 0)")
+    lk = long_prefill(torch, p_bf16, cfg, xs, "int8", True, device)
+    check(flash_launches() == L, f"bf16 prefill at T = {LONG_PROMPT}: "
+          f"{flash_launches()} flash launches (want L = {L})")
+    ld = long_prefill(torch, p_bf16, cfg, xs, "int8", False, device)
+    check(flash_launches() == L, "use_kernel=False bf16 prefill launched "
+          "the flash kernel")
+    torch.cuda.synchronize()
+    dk = float((lk - ref).abs().max())
+    dd = float((ld - ref).abs().max())
+    agree_k = int((lk.argmax(-1) == ref.argmax(-1)).sum())
+    agree_d = int((ld.argmax(-1) == ref.argmax(-1)).sum())
+    log(f"  124M prefill 8 x {LONG_PROMPT}, bf16 weights + int8 pool, "
+        f"last-position logits vs f32 weights + f32 pool: kernel route "
+        f"max|d| {dk:.4e} ({agree_k}/8 argmax agree), dense route "
+        f"{dd:.4e} ({agree_d}/8); flash launches: f32 0, kernel {L}, "
+        "use_kernel=False 0")
+    check(bool(torch.isfinite(lk).all()) and dk <= 1.25 * dd + 1e-3,
+          f"124M prefill: the kernel route is {dk:.4e} from f32, the dense "
+          f"route {dd:.4e} (want <= 1.25 x dense + 1e-3)")
+    log_prefill_times(torch, "124M", p_bf16, cfg, xs, device)
+    del ref, lk, ld, p_bf16
+
+    # 4. the long-context engine at 124M on its three routes
+    lprompts = prompts_for(torch, 8, [LONG_PROMPT] * 8, V, 7, device)
+    rec["launches"] = long_engine(torch, pa, params32, cfg, lprompts,
+                                  LONG_NEW, device)
+
+    # 5. 1558M: one prefill on both routes, then the engine's three
+    cfg15 = GPT2Config.gpt2_1558m()
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    p15 = gpt2.init_params(cfg15, g, device=device)
+    p15b = gpt2.to_device(p15, cfg15, torch.bfloat16, device)
+    xs15 = torch.tensor(prompts_for(torch, 8, [LONG_PROMPT] * 8,
+                                    cfg15.vocab_size, 6, device),
+                        dtype=torch.int32)
+    reset_counts(pa)
+    long_prefill(torch, p15b, cfg15, xs15, "int8", True, device)
+    torch.cuda.synchronize()
+    check(flash_launches() == cfg15.num_layers,
+          f"1558M prefill: {flash_launches()} flash launches (want "
+          f"{cfg15.num_layers})")
+    log_prefill_times(torch, "1558M", p15b, cfg15, xs15, device)
+    del p15b, xs15
+    lprompts15 = prompts_for(torch, 8, [LONG_PROMPT] * 8, cfg15.vocab_size,
+                             7, device)
+    long_engine(torch, pa, p15, cfg15, lprompts15, LONG_NEW_1558M, device)
+    del p15
+    torch.cuda.empty_cache()
+    return rec
+
+
 # ---- phase 11: the kernel lab ------------------------------------------------
 
 # timed calls a run of the lab's sweeps (their default is 50)
@@ -1423,7 +1745,8 @@ def log_lab_floor_and_clusters(torch, device):
 
 # ---- phase 12: the decode-step probe ------------------------------------------
 
-PROBE_RUNS = (["--model", "124m"],
+PROBE_RUNS = (["--model", "124m",
+               "--prefill-lengths", "128,256,896,1024"],
               ["--model", "1558m", "--skip",
                "matmul,prefill,attention,chunk,unrolled"])
 
@@ -1441,14 +1764,16 @@ def probe_summary(r) -> str:
     busy = "-" if r["busy_ms"] is None else f"{r['busy_ms']:.3f}"
     idle = ("-" if r["idle_share"] is None
             else f"{r['idle_share']:.3f}")
-    return f"{r['name']} {r['host_ms']:.3f}/{dev}/{busy} idle {idle}"
+    name = (f"{r['name']} T={r['config'][1]}" if r["suite"] == "prefill"
+            else r["name"])
+    return f"{name} {r['host_ms']:.3f}/{dev}/{busy} idle {idle}"
 
 
 def phase_probe(pa) -> list:
-    """probe_decode.main in process: all suites at 124M, the GEMV and
-    kernel suites at 1558M. Logs one line a suite; checks that the
-    paged-attention launches equal the calls the probe's records count.
-    Returns the records."""
+    """probe_decode.main in process: all suites at 124M (the prefill at
+    T 128, 256, 896 and 1024), the GEMV and kernel suites at 1558M. Logs
+    one line a suite; checks that the paged-attention and flash launches
+    equal the calls the probe's records count. Returns the records."""
     from llmc_paged_tpu_torch.ops.dev import probe_decode
     reset_counts(pa)
     records = []
@@ -1470,6 +1795,8 @@ def phase_probe(pa) -> list:
     for r in records:
         want.update(r["kernels"])
     got = {k: v for k, v in pa.LAUNCHES.items() if v}
+    if flash_launches():
+        got["causal_attention_flash"] = flash_launches()
     check(got == dict(want) and sum(want.values()) > 0,
           f"probe launches {got} != the calls its records count "
           f"{dict(want)}")
@@ -1530,6 +1857,9 @@ def main() -> int:
                       kv_dtype="int8", param_dtype="int8", num_pages=28,
                       engine=eng)
     launches_main = dict(pa.LAUNCHES)
+    check(flash_launches() == 0,
+          f"headline: {flash_launches()} flash launches at T = 128 (the "
+          "rule keeps it dense)")
     st = eng.stats
     check(len(done) == 8 and all(len(r.generated) == 128 for r in done),
           "headline: not every request finished with 128 tokens")
@@ -1805,6 +2135,11 @@ def main() -> int:
           "sampling, fp32 parity engine and int8 headline engine")
     phase_serving(torch, pa, params32, cfg, device, greedy_host_ms)
 
+    # 14. the long-prompt prefill, also before any torch.profiler trace
+    phase(f"phase 14: the long-prompt bf16 prefill through the flash "
+          f"kernel, {LONG_PROMPT}-token prompts at 124M and 1558M")
+    flash = phase_long_prefill(torch, pa, params32, cfg, device)
+
     # 11. the kernel lab (its main path: the sweeps), then its kernels
     # timed
     phase(f"phase 11: the kernel lab, {LAB_ITERS} timed calls a run")
@@ -1851,6 +2186,9 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None})
+    kernels.append(dict({"name": "causal_attention_flash", "route": "cuda",
+                         "source": FLASH_SOURCE,
+                         "replaces": FLASH_TPU_KERNEL}, **flash))
     for key, k in LAB_KERNELS.items():
         rec = lab[key]
         kernels.append({

@@ -426,7 +426,7 @@ class InferenceEngine:
         toks = list(prompt)
         logits, cache = gpt2.prefill(
             self.params, torch.tensor([toks[base:]], dtype=torch.int32),
-            cache, cfg)
+            cache, cfg, use_kernel=self.use_kernel)
         toks.append(_pick_token(sampler, logits[0, -1]))
         for _ in range(max_new_tokens - 1):
             if stops and toks[-1] in stops:
@@ -894,7 +894,8 @@ class InferenceEngine:
                     full, pool = gpt2_paged.prefill_paged(
                         self._prefill_params or self.params,
                         torch.from_numpy(xs), pg, sl, pool, cfg,
-                        last_pos=None)                          # (Bg, T, V)
+                        last_pos=None,
+                        use_kernel=self.use_kernel)             # (Bg, T, V)
                     logits, plp_d = _prefill_plp_extract(full, xs, valid,
                                                          last)
                     del full
@@ -906,7 +907,8 @@ class InferenceEngine:
                     logits, pool = gpt2_paged.prefill_paged(
                         self._prefill_params or self.params,
                         torch.from_numpy(xs), pg, sl, pool, cfg,
-                        last_pos=torch.from_numpy(last))        # (Bg, V)
+                        last_pos=torch.from_numpy(last),
+                        use_kernel=self.use_kernel)             # (Bg, V)
                 if prefix_on:
                     # publish this wave's full prompt pages only now, after
                     # the call that writes their K/V is queued (a same-wave
@@ -1512,8 +1514,9 @@ class InferenceEngine:
         bucket and the decode chain or single-token step, then the
         logprobs and prompt-logprobs variants when serve_logprobs), so
         that the first tenant of a server pays none of the first-use
-        costs: on the card, the CUDA kernels build (all three serving
-        sources at once, "build") and the caching allocator warms.
+        costs: on the card, the CUDA kernels build (all four serving
+        sources at once, the long-prompt prefill's flash kernel
+        included, "build") and the caching allocator warms.
         Returns {stage: seconds}."""
         if self.econf.cache_mode != "paged":
             return {}
@@ -1522,7 +1525,7 @@ class InferenceEngine:
             from llmc_paged_tpu_torch.ops import _build
             t0 = time.monotonic()
             _build.build_all(("paged_attention", "paged_attention_mq",
-                              "paged_attention_grid"))
+                              "paged_attention_grid", "flash_attention"))
             timings["build"] = round(time.monotonic() - t0, 3)
         prompt = list(range(1, 9))      # bucket 16, any ids work
         new = max(2, min(self.econf.decode_chunk + 2,

@@ -177,11 +177,12 @@ def forward(params: Params, tokens: torch.Tensor,
 
 @torch.no_grad()
 def prefill(params: Params, tokens: torch.Tensor, cache: DenseKVCache,
-            cfg: GPT2Config):
+            cfg: GPT2Config, use_kernel: bool = True):
     """Forward over the prompt that also fills the dense KV cache at
     positions [0, T). Returns (logits (B, T, V), cache). Rows shorter than
     T are right-padded; their K/V past the true length is masked by the
-    decode step's length."""
+    decode step's length. ``use_kernel=False`` keeps the attention dense
+    where ``ops/layers.prefill_attention`` would take the flash kernel."""
     dev = params["wpe"].device
     tokens = tokens.to(dev)
     B, T = tokens.shape
@@ -193,7 +194,7 @@ def prefill(params: Params, tokens: torch.Tensor, cache: DenseKVCache,
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B,NH,T,HS)
             cache.k[i, :, :, :T] = k
             cache.v[i, :, :, :T] = v
-            att = L.prefill_attention(q, k, v)
+            att = L.prefill_attention(q, k, v, use_kernel)
             return att.transpose(1, 2).reshape(B, T, cfg.channels)
 
         x = _block(x, _layer(stack, i), cfg, attend)

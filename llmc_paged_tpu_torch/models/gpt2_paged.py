@@ -487,14 +487,16 @@ def decode_chunk_spec(params, first_tokens, positions0, hist,
 
 @torch.no_grad()
 def prefill_paged(params, tokens, page, slot, pool: PagePool,
-                  cfg: GPT2Config, last_pos=None):
+                  cfg: GPT2Config, last_pos=None, use_kernel: bool = True):
     """Prompt forward that writes all T tokens' K/V into the pool.
 
     tokens (B, T) right-padded prompts; page (B, T) pool page per token
     (num_pages on padding → dropped). PRECONDITION: prompts start at
     position 0 of freshly allocated pages, so token t's slot is
     t % page_size; ``slot`` is accepted for signature symmetry only.
-    Attention is dense causal over the in-flight K/V. ``last_pos`` (B,):
+    Attention is causal over the in-flight K/V: the flash kernel for
+    long bf16 waves, dense otherwise or with ``use_kernel=False``
+    (``ops/layers.prefill_attention``). ``last_pos`` (B,):
     project logits only at each row's position last_pos[b] → (B, V);
     None → (B, T, V). Returns (logits, pool)."""
     del slot
@@ -520,7 +522,7 @@ def prefill_paged(params, tokens, page, slot, pool: PagePool,
                 write_prompt_pages(*pool.layer(i), pad_t(k), pad_t(v),
                                    page_ids)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            att = L.prefill_attention(qh, kh, vh)
+            att = L.prefill_attention(qh, kh, vh, use_kernel)
             return att.transpose(1, 2).reshape(B, T, cfg.channels)
 
         x = gpt2._block(x, gpt2._layer(stack, i), cfg, attend)

@@ -36,6 +36,7 @@ a seeded torch.Generator. FLOPs and bytes use V: the port never pads wte.
 
 Run: python -m llmc_paged_tpu_torch.ops.dev.probe_decode [--model 124m]
      [--device cpu] [--skip gemv,...] [--iters N]
+     [--prefill-lengths 128,256,896,1024]
 """
 
 from __future__ import annotations
@@ -476,11 +477,15 @@ def attention_suite(B, cfg, dtypes=("bfloat16", "int8"), steps=32,
 def prefill_suite(B, cfg, dtypes=("bfloat16", "int8", "int8bf16"), T=128,
                   device=None, calls=STEP_CALLS):
     """Paged prefill (B, T) by param dtype. "int8bf16": bf16 weights with
-    int8 pool writes (the engine's bf16 prefill copy). The page writes
-    read their coordinates back: host and busy time only."""
+    int8 pool writes (the engine's bf16 prefill copy). Where the
+    attention takes the flash kernel (bf16 q, T >= 256, T % 128 == 0, on
+    the card) a "<dtype>-dense" line follows with ``use_kernel=False``.
+    The pool holds ceil(T / 128) pages a row. The page writes read their
+    coordinates back: host and busy time only."""
     dev = resolve_device(device)
-    page_cfg = PageConfig(page_size=128, num_pages=B * 3 + 8, max_seqs=B,
-                          pages_per_seq=3)
+    pps = -(-T // 128)
+    page_cfg = PageConfig(page_size=128, num_pages=B * pps + 8, max_seqs=B,
+                          pages_per_seq=pps)
     mgr = BlockManager(page_cfg.num_pages, page_cfg.page_size, B)
     for b in range(B):
         mgr.append_tokens(b, T)
@@ -503,22 +508,33 @@ def prefill_suite(B, cfg, dtypes=("bfloat16", "int8", "int8bf16"), T=128,
             params = quantize_params(params)
         kv = "int8" if name.startswith("int8") else name
         pool = init_pool(cfg, page_cfg, dtype=kv, device=dev)
-        toks = [torch.from_numpy(np.random.default_rng(0).integers(
-            0, V, (B, T)).astype(np.int32)).to(dev)]
+        # q's dtype: int8 linears return f32, float ones the weights'
+        qd = (torch.float32 if params["qkvw"].dtype == torch.int8
+              else params["qkvw"].dtype)
+        flash = OL.takes_flash(torch.empty((0, 0, T, 0), dtype=qd,
+                                           device=dev))
+        for use_kernel in (True, False) if flash else (True,):
+            toks = [torch.from_numpy(np.random.default_rng(0).integers(
+                0, V, (B, T)).astype(np.int32)).to(dev)]
 
-        def run():
-            logits, _ = prefill_paged(params, toks[0], pg, sl, pool, cfg,
-                                      last_pos=last)
-            # the next call's tokens follow from this call's logits
-            toks[0] = ((toks[0] + logits.argmax(-1)[:, None].int())
-                       % V).int()
+            def run():
+                logits, _ = prefill_paged(params, toks[0], pg, sl, pool,
+                                          cfg, last_pos=last,
+                                          use_kernel=use_kernel)
+                # the next call's tokens follow from this call's logits
+                toks[0] = ((toks[0] + logits.argmax(-1)[:, None].int())
+                           % V).int()
 
-        t = measure(run, dev, calls, queue=False, busy=True)
-        print(f"  prefill {name:9s} {t['ms']:8.2f} ms  "
-              f"{flops / t['ms'] / 1e9:6.2f} TFLOP/s (host clock; "
-              f"{_fmt(t)}; synchronizing path)")
-        records.append(dict(t, suite="prefill", name=name, config=(B, T),
-                            tflops=flops / t["ms"] / 1e9, kernels={}))
+            t = measure(run, dev, calls, queue=False, busy=True)
+            line = name if use_kernel else name + "-dense"
+            print(f"  prefill {line:15s} {t['ms']:8.2f} ms  "
+                  f"{flops / t['ms'] / 1e9:6.2f} TFLOP/s (host clock; "
+                  f"{_fmt(t)}; synchronizing path)")
+            n = L_ * t["units"] if flash and use_kernel else 0
+            records.append(dict(
+                t, suite="prefill", name=line, config=(B, T),
+                tflops=flops / t["ms"] / 1e9,
+                kernels=_kernels(dev, "causal_attention_flash", n)))
     return records
 
 
@@ -672,6 +688,9 @@ def main(argv=None):
     ap.add_argument("--prompt", default="128",
                     help="committed context length for the attention/chunk "
                          "suites; comma list sweeps chunk cells")
+    ap.add_argument("--prefill-lengths", default="128",
+                    help="comma list of prompt lengths T for the prefill "
+                         "suite (the pool holds ceil(T/128) pages a row)")
     ap.add_argument("--pool-mult", default="1",
                     help="chunk-suite pool page multiplier at constant "
                          "live range; comma list sweeps cells")
@@ -699,6 +718,7 @@ def main(argv=None):
     print(f"device: {name}  model: {args.model}")
     prompts = [int(p) for p in args.prompt.split(",")]
     pool_mults = [int(m) for m in args.pool_mult.split(",")]
+    prefill_lengths = [int(t) for t in args.prefill_lengths.split(",")]
     plan = [
         ("gemv", lambda: gemv_suite(args.batch, cfg, iters=args.iters, **kw)),
         ("kernel", lambda: kernel_suite(args.batch, cfg, iters=args.iters,
@@ -706,7 +726,9 @@ def main(argv=None):
         ("matmul", lambda: matmul_suite(
             args.batch, cfg, dtypes=[d for d in dtypes if ":" not in d],
             **kw)),
-        ("prefill", lambda: prefill_suite(args.batch, cfg, **kw)),
+        ("prefill", lambda: [r for T in prefill_lengths
+                             for r in prefill_suite(args.batch, cfg, T=T,
+                                                    **kw)]),
         ("kserve", lambda: kernel_serving(
             args.batch, cfg, page_size=args.page_size,
             deep="kdeep" not in skip, iters=args.iters, **kw)),

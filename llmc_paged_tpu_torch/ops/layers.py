@@ -14,6 +14,9 @@ from __future__ import annotations
 
 import torch
 
+# re-exported under the JAX package's name (its layers.py:86)
+from llmc_paged_tpu_torch.ops.flash_attention import causal_attention_flash
+
 LN_EPS = 1e-5
 GELU_SCALE = 0.7978845608028654  # sqrt(2/pi)
 
@@ -64,8 +67,25 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(probs, v)
 
 
-# the prefill attention on every device: plain torch (no library kernel)
-prefill_attention = causal_attention
+def takes_flash(q: torch.Tensor, use_kernel: bool = True) -> bool:
+    """The JAX package's rule for the flash kernel, with "on the card"
+    for "on the TPU": bf16 q, T >= 256 and T % 128 == 0."""
+    T = q.shape[2]
+    return (q.is_cuda and use_kernel and q.dtype == torch.bfloat16
+            and T >= 256 and T % 128 == 0)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """Dispatch: the flash kernel (``causal_attention_flash``) where
+    ``takes_flash``, the dense ``causal_attention`` otherwise, so fp32
+    prefill keeps the dense path's parity, as in the JAX package. The
+    kernel takes contiguous (B, NH, T, HS) operands: the heads the model
+    hands over are transposed views, copied here."""
+    if takes_flash(q, use_kernel):
+        return causal_attention_flash(q.contiguous(), k.contiguous(),
+                                      v.contiguous())
+    return causal_attention(q, k, v)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -54,6 +54,8 @@ def test_no_source_names_jax_or_the_jax_package():
             ("lab_full_pool.py", "probe_decode.py")} <= set(files)
     assert {os.path.join(PKG, "engine", n) for n in
             ("server.py", "http_server.py")} <= set(files)
+    assert {os.path.join(PKG, "ops", "flash_attention.py"),
+            os.path.join(PKG, "csrc", "flash_attention.cu")} <= set(files)
     hits = []
     for f in files:
         with open(f) as fh:

@@ -889,3 +889,68 @@ def test_full_pool_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
     with pytest.raises(ValueError, match="L, P, NH"):
         FP.paged_decode_attention_full(q, k[0], v[0], layer, tables, lengths,
                                        starts)
+
+
+# ---- the prefill's causal flash attention -----------------------------------
+
+# (B, NH, T): chip_smoke.py's phase-14 shapes (124M and 1558M head counts,
+# the long-context wave and the smallest T the prefill routes), and the
+# kernel's smallest T
+FLASH_SHAPES = [(1, 12, 256), (8, 12, 896), (8, 12, 1024), (8, 25, 896),
+                (2, 25, 1024), (3, 1, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,NH,T", FLASH_SHAPES)
+def test_flash_attention_matches_plain_on_the_card(cuda, B, NH, T):  # noqa: F811
+    """causal_attention_flash against its plain version on N(0, 1) bf16
+    inputs: |kernel - plain| <= 2^-7 |plain| + 2e-3 (one bf16 ulp, plus
+    room for the kernel's other tile order, which rounds p to bf16 at
+    other points), and within 2e-2 of the f32 dense attention (the JAX
+    kernel's docstring scale); one launch a call."""
+    from llmc_paged_tpu_torch.ops import flash_attention as FA
+    from llmc_paged_tpu_torch.ops.layers import causal_attention
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(B * 1000 + NH * 10 + T)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, NH, T, 64))
+                                .astype(np.float32)).to(cuda).bfloat16()
+               for _ in range(3))
+    before = FA.LAUNCHES["causal_attention_flash"]
+    got = FA.causal_attention_flash(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["causal_attention_flash"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    ref = FA.causal_attention_flash_ref(q, k, v).float()
+    d = (got.float() - ref).abs()
+    assert bool((d <= 2.0 ** -7 * ref.abs() + 2e-3).all()), float(d.max())
+    dense = causal_attention(q.float(), k.float(), v.float())
+    assert float((got.float() - dense).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_what_it_does_not_take(cuda):  # noqa: F811
+    from llmc_paged_tpu_torch.ops import flash_attention as FA
+    shape = (2, 3, 256, 64)
+    q = torch.randn(shape, device=cuda).bfloat16()
+    before = FA.LAUNCHES["causal_attention_flash"]
+    with pytest.raises(TypeError):
+        FA.causal_attention_flash(q.float(), q.float(), q.float())
+    wide = torch.randn((2, 3, 256, 128), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="head size"):
+        FA.causal_attention_flash(wide, wide, wide)
+    odd = torch.randn((2, 3, 400, 64), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="multiple of 128"):
+        FA.causal_attention_flash(odd, odd, odd)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.causal_attention_flash(q, q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), q)
+    with pytest.raises(ValueError, match="shape"):
+        FA.causal_attention_flash(q, q[:1].contiguous(), q)
+    with pytest.raises(ValueError, match="is on"):
+        FA.causal_attention_flash(q, q.cpu(), q)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(shape)              # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.causal_attention_flash(q, shifted, q)
+    assert FA.LAUNCHES["causal_attention_flash"] == before

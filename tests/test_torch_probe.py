@@ -151,3 +151,34 @@ def test_main_runs_the_suites_it_is_not_told_to_skip(monkeypatch):
     assert [r["suite"] for r in records] == ["gemv", "kernel", "kserve",
                                              "chunk", "chunk"]
     assert all(r["suite_s"] >= 0 for r in records)
+
+
+def test_prefill_suite_sizes_the_pool_from_T(capsys):
+    """T = 512 needs 4 pages of 128 a row (the pool was fixed at 3): the
+    suite runs, one record a dtype (no dense line on the CPU, where the
+    flash route is never taken), host time only, no launch."""
+    cfg = GPT2Config.tiny(max_seq_len=512)
+    records = P.prefill_suite(2, cfg, dtypes=("bfloat16", "int8bf16"),
+                              T=512, device="cpu")
+    assert [r["name"] for r in records] == ["bfloat16", "int8bf16"]
+    assert all(r["config"] == (2, 512) and r["kernels"] == {}
+               and r["host_ms"] > 0 for r in records)
+    assert "B=2 T=512" in capsys.readouterr().out
+
+
+def test_main_sweeps_the_prefill_lengths(monkeypatch):
+    """--prefill-lengths runs the prefill suite once a length (default:
+    128 alone, as before)."""
+    seen = []
+
+    def fake(B, cfg, T=128, **kw):
+        seen.append(T)
+        return [dict(name="bfloat16")]
+
+    monkeypatch.setattr(P, "prefill_suite", fake)
+    skip = "gemv,kernel,kserve,matmul,attention,chunk,unrolled"
+    P.main(["--device", "cpu", "--skip", skip])
+    records = P.main(["--device", "cpu", "--skip", skip,
+                      "--prefill-lengths", "256,896"])
+    assert seen == [128, 256, 896]
+    assert [r["suite"] for r in records] == ["prefill", "prefill"]
