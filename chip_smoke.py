@@ -102,17 +102,21 @@ Phases (any failed check raises, and the script exits non-zero):
      prefill through the flash kernel (csrc/flash_attention.cu): the
      kernel against its plain version (2^-7 |plain| + 2e-3) and the f32
      dense attention (2e-2) at (B, NH, T) = (1, 12, 256), (8, 12, 896),
-     (8, 12, 1024), (8, 25, 896) and (2, 25, 1024), timed beside its
-     plain version, the dense bf16 route, SDPA's flash backend (the
-     yardstick, never called by the port) and its bound; its refusals;
+     (8, 12, 1024), (8, 25, 896) and (2, 25, 1024), on contiguous heads
+     and on the views of one qkv buffer (the output's (B, T, C) reshape a
+     view), timed on both; on the qkv views, as the main path sends them,
+     beside its plain version, the dense bf16 route, SDPA's flash backend
+     (the yardstick, never called by the port) and its bound; what it compiles to (ops/dev/sass_report.py: registers, shared
+     memory, spills; HGMMA > 0, HMMA = 0, UTMALDG > 0); its refusals;
      0 flash launches for an fp32 and a use_kernel=False prefill at
      T = 896; a GPT-2 124M prefill of 8 x 896 (bf16 weights, int8 pool)
      no further from the f32 prefill than the dense route is (x 1.25 +
      1e-3); the long-context engine (int8, bf16 prefill copy, pps 9,
      8 x (896 + 128), greedy) on three routes (the kernel route, a
      dense prefill beside the decode kernels, use_kernel=False): flash
-     launches = L x prefill waves on the first, 0 on the others, TTFT
-     and tok/s; at 1558M a prefill of 8 x 896 (48 launches, ms a call on
+     launches = L x prefill waves on the first, 0 on the others, TTFT,
+     tok/s and the device ms of each prefill wave (CUDA events around
+     prefill_paged); at 1558M a prefill of 8 x 896 (48 launches, ms a call on
      both routes) and the engine with 32 new tokens on the three routes.
 Every kernel time is the lab harness's: CUDA events over launches queued
 behind a sleep kernel, the median of 3 runs.
@@ -1188,13 +1192,22 @@ def flash_cost(B, NH, T, HS=64):
 
 
 @contextlib.contextmanager
-def counting_calls(module, name):
-    """Count the calls of module.name (the engine's prefill waves)."""
-    fn, calls = getattr(module, name), [0]
+def counting_calls(torch, module, name):
+    """Count the calls of module.name (the engine's prefill waves), with
+    a pair of CUDA events around each: after the run, ``calls[1]`` holds
+    them and ``device_ms_of`` turns them into the device ms of each call
+    (it synchronizes)."""
+    fn, calls = getattr(module, name), [0, []]   # count, [(start, end)]
 
     def counted(*a, **kw):
         calls[0] += 1
-        return fn(*a, **kw)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = fn(*a, **kw)
+        ev[1].record()
+        calls[1].append(ev)
+        return out
 
     setattr(module, name, counted)
     try:
@@ -1203,35 +1216,98 @@ def counting_calls(module, name):
         setattr(module, name, fn)
 
 
+def device_ms_of(torch, events):
+    """Device ms between each (start, end) pair of CUDA events."""
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def qkv_views(torch, B, NH, T, g, device):
+    """q, k, v as the model hands them over: the (B, NH, T, 64) views of
+    one (B, T, 3 NH 64) qkv buffer, N(0, 1) bf16."""
+    buf = torch.randn((B, T, 3 * NH * 64), generator=g,
+                      device=device).bfloat16()
+    return [x.reshape(B, T, NH, 64).transpose(1, 2)
+            for x in buf.split(NH * 64, dim=-1)]
+
+
+def flash_build_report(device):
+    """What csrc/flash_attention.cu compiles to (ops/dev/sass_report.py:
+    -Xptxas -v and cuobjdump): its registers, static and dynamic shared
+    memory, spills, HGMMA, HMMA and UTMALDG counts; fails unless the
+    kernel is on wgmma (HGMMA > 0, HMMA = 0) and TMA (UTMALDG > 0)."""
+    import ctypes
+    from llmc_paged_tpu_torch.ops import _build
+    from llmc_paged_tpu_torch.ops.dev import sass_report
+    recs = [r for r in sass_report.compile_report(_build.CSRC,
+                                                  "flash_attention")
+            if "flash_fwd_kernel" in r["demangled"]]
+    check(len(recs) == 1, f"sass_report: {len(recs)} flash kernels")
+    r = recs[0]
+    dyn = ctypes.CDLL(_build.build("flash_attention")) \
+        .causal_attention_flash_smem_bytes()
+    log(f"  flash kernel: {r['registers']} registers, {r['smem']} B static "
+        f"+ {dyn} B dynamic shared memory, spill {r['spill_stores']}/"
+        f"{r['spill_loads']} B, HGMMA {r['hgmma']}, HMMA {r['hmma']}, "
+        f"UTMALDG {r['utmaldg']}, {r['instructions']} instructions")
+    check(r["hgmma"] > 0 and r["hmma"] == 0 and r["utmaldg"] > 0,
+          "flash kernel: want HGMMA > 0, HMMA = 0 and UTMALDG > 0")
+
+
+def flash_check(torch, q, k, v, what):
+    """The flash kernel on q, k, v against its plain version (within
+    2^-7 |plain| + 2e-3) and the f32 dense attention (within 2e-2).
+    Returns (kernel output, plain output, max |kernel - plain|, max
+    |kernel - f32 dense|)."""
+    from llmc_paged_tpu_torch.ops import flash_attention as fa
+    from llmc_paged_tpu_torch.ops.layers import causal_attention
+    got = fa.causal_attention_flash(q, k, v)
+    plain = fa.causal_attention_flash_ref(q, k, v)
+    dense32 = causal_attention(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    d = (got.float() - plain.float()).abs()
+    err, err32 = float(d.max()), float((got.float() - dense32).abs().max())
+    check(bool((d <= 2.0 ** -7 * plain.float().abs() + 2e-3).all())
+          and bool(torch.isfinite(got).all()),
+          f"flash {what}: |kernel - plain| {err:.3e} above 2^-7 |plain| "
+          "+ 2e-3")
+    check(err32 <= 2e-2, f"flash {what}: {err32:.3e} from the f32 dense "
+          "attention (tol 2e-2)")
+    return got, plain, err, err32
+
+
 def flash_kernel_checks(torch, device):
     """Item 1: the kernel against its plain version and the f32 dense
-    attention at FLASH_SHAPES, its refusals, and its time beside the
-    plain version's, the dense bf16 route's, SDPA's flash backend (the
-    yardstick) and the bound. Returns the FLASH_MAIN record."""
+    attention at FLASH_SHAPES, on contiguous heads and on the qkv views
+    the model hands over (the output's (B, T, C) reshape a view of it),
+    its refusals, what it compiles to, and, on the qkv views, its time
+    beside the plain version's, the dense bf16 route's, SDPA's flash
+    backend (the yardstick) and the bound. Returns the FLASH_MAIN record,
+    taken on the qkv views."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from llmc_paged_tpu_torch.ops import flash_attention as fa
     from llmc_paged_tpu_torch.ops.layers import causal_attention
+    flash_build_report(device)
     g = torch.Generator(device=device)
     main = None
     for B, NH, T in FLASH_SHAPES:
         g.manual_seed(B * 1000 + NH * 10 + T)
         q, k, v = (torch.randn((B, NH, T, 64), generator=g, device=device)
                    .bfloat16() for _ in range(3))
-        got = fa.causal_attention_flash(q, k, v)
-        plain = fa.causal_attention_flash_ref(q, k, v)
-        dense32 = causal_attention(q.float(), k.float(), v.float())
-        torch.cuda.synchronize()
-        d = (got.float() - plain.float()).abs()
-        within = bool((d <= 2.0 ** -7 * plain.float().abs() + 2e-3).all())
-        err = float(d.max())
-        err32 = float((got.float() - dense32).abs().max())
-        check(within and bool(torch.isfinite(got).all()),
-              f"flash ({B}, {NH}, {T}): |kernel - plain| {err:.3e} above "
-              "2^-7 |plain| + 2e-3")
-        check(err32 <= 2e-2, f"flash ({B}, {NH}, {T}): {err32:.3e} from "
-              "the f32 dense attention (tol 2e-2)")
-        del dense32
+        _, _, err, err32 = flash_check(torch, q, k, v, f"({B}, {NH}, {T})")
+        cms = device_ms(lambda: fa.causal_attention_flash(q, k, v))
+        log(f"  flash ({B}, {NH}, {T}) on contiguous heads: |kernel - "
+            f"plain| {err:.3e}, |kernel - f32 dense| {err32:.3e}, "
+            f"{cms * 1e3:.2f} us a call")
+        del q, k, v
+        # as the main path sends them: the views of one qkv buffer
+        q, k, v = qkv_views(torch, B, NH, T, g, device)
+        got, plain, err, err32 = flash_check(
+            torch, q, k, v, f"({B}, {NH}, {T}) on qkv views")
+        flat = got.transpose(1, 2).reshape(B, T, NH * 64)
+        check(flat.data_ptr() == got.data_ptr() and flat.is_contiguous(),
+              "flash: the output's (B, T, C) reshape is not a view")
 
         def sdpa():
             with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
@@ -1249,9 +1325,10 @@ def flash_kernel_checks(torch, device):
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"  flash ({B}, {NH}, {T}, 64) bf16: |kernel - plain| {err:.3e}, "
-            f"|kernel - f32 dense| {err32:.3e}, |SDPA - plain| "
-            f"{lib_err:.3e}; us a call: kernel {ms * 1e3:.2f}, plain "
+        log(f"  flash ({B}, {NH}, {T}, 64) bf16 on qkv views: |kernel - "
+            f"plain| {err:.3e}, |kernel - f32 dense| {err32:.3e}, |SDPA - "
+            f"plain| {lib_err:.3e}; the output's (B, T, C) reshape is a "
+            f"view; us a call: kernel {ms * 1e3:.2f}, plain "
             f"{plain_ms * 1e3:.2f}, dense bf16 {dense_ms * 1e3:.2f}, SDPA "
             f"flash {lib_ms * 1e3:.2f}, bound {rec['bound_ms'] * 1e3:.2f} by "
             f"{rec['bound_by']} ({nbytes} B at 3.35 TB/s "
@@ -1259,7 +1336,7 @@ def flash_kernel_checks(torch, device):
             f"{t_ops * 1e3:.2f} us)")
         if (B, NH, T) == FLASH_MAIN:
             main = rec
-        del q, k, v, got, plain
+        del q, k, v, got, plain, flat
     # refusals: no launch, no fallback
     before = flash_launches()
     q = torch.randn((2, 3, 384, 64), device=device).bfloat16()
@@ -1269,14 +1346,21 @@ def flash_kernel_checks(torch, device):
             ("T 400", (torch.randn((2, 3, 400, 64), device=device)
                        .bfloat16(),) * 3),
             ("non-contiguous k", (q, q.transpose(2, 3).contiguous()
-                                  .transpose(2, 3), q))):
+                                  .transpose(2, 3), q)),
+            ("a token stride of 68", (q, torch.randn(
+                (2, 3, 384, 68), device=device).bfloat16()[..., :64], q)),
+            ("a base 8 bytes off", (q, torch.randn(
+                (2, 384, 3 * 64 + 8), device=device).bfloat16()
+                [..., 4:4 + 3 * 64].reshape(2, 384, 3, 64).transpose(1, 2),
+                q))):
         try:
             fa.causal_attention_flash(*args)
         except (TypeError, ValueError):
             continue
         raise Failed(f"flash: {what} was not refused")
     check(flash_launches() == before, "flash: a refused call launched")
-    log("  flash refuses f32 q, HS 128, T 400 and a non-contiguous k")
+    log("  flash refuses f32 q, HS 128, T 400, a k whose last dim is not "
+        "contiguous, a token stride of 68 elements and a base 8 bytes off")
     return main
 
 
@@ -1361,10 +1445,12 @@ def long_engine(torch, pa, params32, cfg, prompts, new, device):
             serve(torch, params32, cfg, prompts=prompts, new=4, engine=eng,
                   **kw)                                 # warm-up
             reset_counts(pa)
-            with counting_calls(gpt2_paged, "prefill_paged") as waves:
+            with counting_calls(torch, gpt2_paged,
+                                "prefill_paged") as waves:
                 eng, done = serve(torch, params32, cfg, prompts=prompts,
                                   new=new, engine=eng, **kw)
         st, fl, w = eng.stats, flash_launches(), waves[0]
+        wave_ms = device_ms_of(torch, waves[1])
         out[label] = done
         del eng
         check(len(done) == 8 and all(len(r.generated) == new
@@ -1381,7 +1467,8 @@ def long_engine(torch, pa, params32, cfg, prompts, new, device):
             f"decode_tok_per_s {st['decode_tok_per_s']:.1f}, "
             f"t_prefill_dispatch_s {st['t_prefill_dispatch_s']}, wall "
             f"{st['wall_s']:.3f} s, flash launches {fl} ({w} prefill "
-            "wave(s))")
+            "wave(s); device ms a wave, CUDA events around prefill_paged: "
+            + ", ".join(f"{x:.2f}" for x in wave_ms) + ")")
     same = [sum(a.generated == b.generated
                 for a, b in zip(out["kernel route"], out[label]))
             for label, _, _ in LONG_ROUTES[1:]]

@@ -129,16 +129,17 @@ def entry(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
     return f
 
 
-def check_operand(name, t, dtypes, shape, device) -> None:
+def check_operand(name, t, dtypes, shape, device, contiguous=True) -> None:
     """Raise unless tensor ``t`` is on ``device``, of one of ``dtypes``,
-    of ``shape`` and contiguous: what a kernel takes."""
+    of ``shape`` and (unless ``contiguous`` is False, for a kernel that
+    takes strides) contiguous: what a kernel takes."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, not {device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

@@ -1,6 +1,7 @@
 """What the port's CUDA sources compile to: each kernel's registers,
-spills and tensor-core instructions, and a hash of its SASS instruction
-stream, for checking that an edit leaves other instances unchanged.
+static shared memory, spills, tensor-core instructions (HMMA, HGMMA) and
+TMA loads (UTMALDG), and a hash of its SASS instruction stream, for
+checking that an edit leaves other instances unchanged.
 
 Each ``csrc/<name>.cu`` is compiled to a cubin with the build's flags
 (``ops/_build.py``) plus ``-Xptxas -v``; ``cuobjdump -sass`` lists its
@@ -37,6 +38,7 @@ from llmc_paged_tpu_torch.ops._build import CSRC, NVCC_FLAGS, nvcc_path
 _PTXAS_FN = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 _SASS_FN = re.compile(r"^\s*Function : (\S+)")
 _SASS_INSN = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s*(.*)$")
 _SASS_WORD = re.compile(r"^\s*/\*\s*(0x[0-9a-f]+)\s*\*/\s*$")
@@ -60,8 +62,9 @@ def _demangle(names):
 
 
 def compile_report(csrc: str, name: str) -> list:
-    """[{source, function, demangled, registers, spill_stores, spill_loads,
-    hmma, hgmma, instructions, sha}] of csrc/<name>.cu."""
+    """[{source, function, demangled, registers, smem, spill_stores,
+    spill_loads, hmma, hgmma, utmaldg, instructions, sha}] of
+    csrc/<name>.cu (smem: static shared memory bytes)."""
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
                                                 "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
@@ -77,8 +80,8 @@ def compile_report(csrc: str, name: str) -> list:
             m = _PTXAS_FN.search(line)
             if m:
                 fn = m.group(1)
-                info[fn] = {"registers": None, "spill_stores": 0,
-                            "spill_loads": 0}
+                info[fn] = {"registers": None, "smem": 0,
+                            "spill_stores": 0, "spill_loads": 0}
                 continue
             if fn is None:
                 continue
@@ -89,6 +92,9 @@ def compile_report(csrc: str, name: str) -> list:
             m = _PTXAS_REGS.search(line)
             if m:
                 info[fn]["registers"] = int(m.group(1))
+            m = _PTXAS_SMEM.search(line)
+            if m:
+                info[fn]["smem"] = int(m.group(1))
         sass = subprocess.run([_tool("cuobjdump") or "cuobjdump", "-sass",
                                cubin], capture_output=True, text=True,
                               check=True).stdout
@@ -114,10 +120,11 @@ def compile_report(csrc: str, name: str) -> list:
         body = "\n".join(insns)
         out.append({
             "source": name, "function": f, "demangled": names[f],
-            **info.get(f, {"registers": None, "spill_stores": None,
-                           "spill_loads": None}),
+            **info.get(f, {"registers": None, "smem": None,
+                           "spill_stores": None, "spill_loads": None}),
             "hmma": sum(" HMMA" in f" {i}" for i in insns),
             "hgmma": sum(" HGMMA" in f" {i}" for i in insns),
+            "utmaldg": sum(" UTMALDG" in f" {i}" for i in insns),
             "instructions": len(insns),
             "sha": hashlib.sha256(body.encode()).hexdigest()[:16]})
     return out
@@ -144,7 +151,8 @@ def main(argv=None):
         print(f"{r['source']}: {r['demangled']}: {r['registers']} regs, "
               f"spill {r['spill_stores']}/{r['spill_loads']} B, "
               f"{r['instructions']} insns, HMMA {r['hmma']}, "
-              f"HGMMA {r['hgmma']}, sha {r['sha']}")
+              f"HGMMA {r['hgmma']}, UTMALDG {r['utmaldg']}, "
+              f"sha {r['sha']}")
     summary = {"functions": len(recs),
                "spilling": sorted(r["demangled"] for r in recs
                                   if r["spill_stores"]),

@@ -66,12 +66,56 @@ def causal_attention_flash_ref(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def tensor_map_geometry(shape, stride, name="q", itemsize=2):
+    """The TMA tensor map the kernel reads one (B, NH, T, HS) operand
+    through, from its shape and element strides: ``(dims, byte_strides,
+    box)`` with dims (HS, T, NH, B), the byte strides of T, NH and B, and
+    the box of one 128-row tile, (HS, 128, 1, 1). Raises ``ValueError``
+    for what TMA cannot read: a last dim that is not contiguous, or a
+    stride that is not a positive multiple of 8 elements (16 bytes) or
+    reaches 2^40 bytes. A dim of size 1 is never stepped: its stride is
+    replaced by a contiguous one."""
+    B, NH, T, HS = shape
+    sb, sh, st, sd = stride
+    if sd != 1:
+        raise ValueError(f"{name}: the last dim must be contiguous "
+                         f"(stride {sd})")
+    out = []
+    for dim, size, s, dense in (("token", T, st, HS), ("head", NH, sh, T * HS),
+                                ("batch", B, sb, NH * T * HS)):
+        if size == 1:
+            s = dense
+        if s <= 0 or s % 8 or s * itemsize >= 2 ** 40:
+            raise ValueError(f"{name}: {dim} stride {s} is not a positive "
+                             "multiple of 8 elements (16 bytes) below 2^40 "
+                             "bytes")
+        out.append(s * itemsize)
+    return (HS, T, NH, B), tuple(out), (HS, BLOCK, 1, 1)
+
+
+def kernel_geometry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor) -> tuple:
+    """The C entry's ``geom`` array: for q, then k, then v, the 11 values
+    of its tensor map (``tensor_map_geometry``: dims, byte strides, box),
+    then out's element strides of B, NH and T. Raises ``ValueError`` on a
+    stride the kernel cannot read."""
+    geom = []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        for part in tensor_map_geometry(t.shape, t.stride(), name):
+            geom += part
+    return tuple(geom) + tuple(out.stride()[:3])
+
+
 def causal_attention_flash(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> torch.Tensor:
     """Causal attention over (B, NH, T, HS) in O(T) memory. A CPU tensor
     takes the plain version; a CUDA tensor launches
-    ``csrc/flash_attention.cu`` (bf16, HS 64, T % 128 == 0, contiguous
-    and 16-byte aligned operands) or raises."""
+    ``csrc/flash_attention.cu`` (bf16, HS 64, T % 128 == 0; q, k and v
+    may be strided views, as the heads cut from a (B, T, 3C) qkv product
+    are, with the last dim contiguous, strides a multiple of 8 elements
+    and 16-byte aligned bases) or raises. On the card the result is the
+    (B, NH, T, HS) view of a (B, T, NH, HS) tensor, so its
+    ``transpose(1, 2).reshape(B, T, NH * HS)`` is a view too."""
     if q.device.type == "cpu":
         return causal_attention_flash_ref(q, k, v)
     if q.device.type != "cuda":
@@ -86,17 +130,20 @@ def causal_attention_flash(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"T = {T}: the kernel takes a positive multiple "
                          f"of {BLOCK}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_operand(name, t, (torch.bfloat16,), (B, NH, T, HS), q.device)
+        check_operand(name, t, (torch.bfloat16,), (B, NH, T, HS), q.device,
+                      contiguous=False)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-    out = torch.empty_like(q)
+    out = torch.empty((B, T, NH, HS), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    geom = kernel_geometry(q, k, v, out)
     if out.numel() == 0:
         return out
     fn = entry("flash_attention", "causal_attention_flash",
-               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-               + [ctypes.c_float, ctypes.c_void_p])
+               [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
+                                        ctypes.c_float, ctypes.c_void_p])
     launch(fn, q.device, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), B, NH, T, HS,
+                          out.data_ptr(), (ctypes.c_longlong * 36)(*geom),
                           1.0 / math.sqrt(HS)), "causal_attention_flash")
     LAUNCHES["causal_attention_flash"] += 1
     return out

@@ -80,11 +80,10 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dispatch: the flash kernel (``causal_attention_flash``) where
     ``takes_flash``, the dense ``causal_attention`` otherwise, so fp32
     prefill keeps the dense path's parity, as in the JAX package. The
-    kernel takes contiguous (B, NH, T, HS) operands: the heads the model
-    hands over are transposed views, copied here."""
+    kernel reads the transposed head views the model hands over through
+    their strides, uncopied."""
     if takes_flash(q, use_kernel):
-        return causal_attention_flash(q.contiguous(), k.contiguous(),
-                                      v.contiguous())
+        return causal_attention_flash(q, k, v)
     return causal_attention(q, k, v)
 
 

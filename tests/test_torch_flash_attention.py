@@ -126,23 +126,121 @@ def test_prefill_attention_stays_dense_off_the_rule(monkeypatch, dtype, T,
 
 
 def test_prefill_attention_hands_the_kernel_contiguous_heads(monkeypatch):
-    """Where the rule holds (forced here), prefill_attention passes the
-    transposed head views on as contiguous (B, NH, T, HS) tensors and
-    returns the flash result."""
+    """Where the rule holds (forced here), prefill_attention hands the
+    kernel the model's transposed head views uncopied (only each head's
+    last dim is contiguous): every data_ptr lies in the qkv buffer's
+    storage, at the offsets of the views. It returns the flash result."""
     seen = []
 
     def record(q, k, v):
-        seen.append([t.is_contiguous() for t in (q, k, v)])
+        seen.append([(t.data_ptr(), t.stride(), t.untyped_storage()
+                      .data_ptr()) for t in (q, k, v)])
         return TF.causal_attention_flash_ref(q, k, v)
 
     monkeypatch.setattr(TL, "takes_flash", lambda q, use_kernel: True)
     monkeypatch.setattr(TL, "causal_attention_flash", record)
-    x = [torch.from_numpy(a).bfloat16() for a in _qkv((1, 256, 2, 64))]
-    q, k, v = (t.transpose(1, 2) for t in x)           # (B, NH, T, HS)
+    B, T, NH = 1, 256, 2
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * NH * 64))
+                           .astype(np.float32)).bfloat16()
+    q, k, v = (t.reshape(B, T, NH, 64).transpose(1, 2)
+               for t in qkv.split(NH * 64, dim=-1))    # (B, NH, T, HS)
     assert not q.is_contiguous()
     got = TL.prefill_attention(q, k, v)
-    assert seen == [[True, True, True]]
+    base, size = qkv.data_ptr(), qkv.element_size()
+    assert seen == [[(base + i * NH * 64 * size, (T * 3 * NH * 64, 64,
+                                                  3 * NH * 64, 1), base)
+                     for i in range(3)]]
     assert torch.equal(got, TF.causal_attention_flash_ref(q, k, v))
+
+
+def _qkv_views(B, T, NH, device="meta"):
+    """The heads as the model cuts them from its (B, T, 3C) qkv product."""
+    buf = torch.empty((B, T, 3 * NH * 64), dtype=torch.bfloat16,
+                      device=device)
+    return [t.reshape(B, T, NH, 64).transpose(1, 2)
+            for t in buf.split(NH * 64, dim=-1)]
+
+
+@pytest.mark.parametrize("B,T,NH", [(8, 896, 12), (8, 896, 25),
+                                    (1, 256, 12), (2, 1024, 25)])
+def test_tensor_map_geometry_of_the_qkv_views(B, T, NH):
+    """The tensor maps over the 124M (NH 12, C 768) and 1558M (NH 25,
+    C 1600) qkv views: dims (HS, T, NH, B); byte strides of a token (one
+    qkv row, 3C bf16), a head (64 bf16) and a batch row (T qkv rows; at
+    B 1 the dense stride); one box of 128 rows of 64. The same for q, k
+    and v (only the base differs), and for a contiguous (B, NH, T, 64)
+    tensor its dense strides."""
+    C = NH * 64
+    for t in _qkv_views(B, T, NH):
+        dims, strides, box = TF.tensor_map_geometry(t.shape, t.stride())
+        assert dims == (64, T, NH, B)
+        batch = T * 3 * C * 2 if B > 1 else NH * T * 128   # B 1: dense
+        assert strides == (3 * C * 2, 128, batch)
+        assert box == (64, 128, 1, 1)
+    dense = torch.empty((B, NH, T, 64), device="meta")
+    assert TF.tensor_map_geometry(dense.shape, dense.stride())[1] == (
+        128, T * 128, NH * T * 128)
+
+
+def test_tensor_map_geometry_of_a_single_head_and_batch():
+    """A dim of size 1 is never stepped: its stride, whatever it is, is
+    replaced by the contiguous one."""
+    assert TF.tensor_map_geometry((1, 1, 256, 64), (5, 3, 64, 1))[1] == (
+        128, 256 * 128, 256 * 128)
+
+
+@pytest.mark.parametrize("stride,what", [
+    ((3 * 256 * 192, 64, 192, 2), "last dim"),      # every other element
+    ((3 * 256 * 192, 64, 196, 1), "token stride"),  # 392 bytes a row
+    ((3 * 256 * 192, 60, 192, 1), "head stride"),
+    ((3 * 256 * 192 + 4, 64, 192, 1), "batch stride"),
+    ((3 * 256 * 192, 64, 0, 1), "token stride"),    # broadcast rows
+    ((2 ** 39, 64, 192, 1), "batch stride")])       # 2^40 bytes
+def test_tensor_map_geometry_refuses_what_tma_cannot_read(stride, what):
+    """A ValueError, naming the operand and the dim, on each stride the
+    kernel refuses: a last dim that is not contiguous, a stride that is
+    not a positive multiple of 8 elements (16 bytes), one of 2^40 bytes."""
+    with pytest.raises(ValueError, match=what.split()[0]) as e:
+        TF.tensor_map_geometry((2, 3, 256, 64), stride, "k")
+    assert str(e.value).startswith("k:")
+
+
+@pytest.mark.parametrize("B,T,NH,qkv", [
+    (8, 896, 12, True), (8, 896, 25, True), (1, 256, 12, True),
+    (2, 1024, 25, True), (3, 128, 12, True), (8, 896, 12, False),
+    (1, 256, 25, False)])
+def test_kernel_geometry_is_what_the_c_entry_reads(B, T, NH, qkv):
+    """The 36 values of the C entry's ``geom`` for the qkv views (or
+    contiguous heads) and the (B, T, NH, 64) output the wrapper
+    allocates: per operand the 11 of its tensor map in the order the C
+    entry reads them, dims (64, T, NH, B), byte strides of T, NH and B,
+    box (64, 128, 1, 1); then the output's element strides of B, NH, T."""
+    C = NH * 64
+    if qkv:
+        q, k, v = _qkv_views(B, T, NH)
+        strides = (3 * C * 2, 128, T * 3 * C * 2 if B > 1 else NH * T * 128)
+    else:
+        q = k = v = torch.empty((B, NH, T, 64), dtype=torch.bfloat16,
+                                device="meta")
+        strides = (128, T * 128, NH * T * 128)
+    out = torch.empty((B, T, NH, 64), dtype=torch.bfloat16,
+                      device="meta").transpose(1, 2)
+    one = (64, T, NH, B) + strides + (64, 128, 1, 1)
+    assert TF.kernel_geometry(q, k, v, out) == one * 3 + (T * C, 64, C)
+
+
+@pytest.mark.parametrize("bad", ["q", "k", "v"])
+def test_kernel_geometry_names_the_operand_it_refuses(bad):
+    """A stride the kernel cannot read in any one operand raises a
+    ValueError that names that operand."""
+    good = _qkv_views(2, 256, 3)
+    ops = {n: t for n, t in zip("qkv", good)}
+    ops[bad] = torch.empty((2, 3, 256, 68), dtype=torch.bfloat16,
+                           device="meta")[..., :64]       # 136-byte rows
+    with pytest.raises(ValueError, match="token stride 68") as e:
+        TF.kernel_geometry(ops["q"], ops["k"], ops["v"], good[0])
+    assert str(e.value).startswith(f"{bad}:")
 
 
 def test_flash_refuses_other_devices():

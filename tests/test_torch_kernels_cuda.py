@@ -898,23 +898,35 @@ def test_full_pool_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
 # kernel's smallest T
 FLASH_SHAPES = [(1, 12, 256), (8, 12, 896), (8, 12, 1024), (8, 25, 896),
                 (2, 25, 1024), (3, 1, 128)]
+# the heads as the model hands them over: q, k and v cut from one
+# (B, T, 3 NH 64) qkv buffer, at both head counts, T = 128 and 1024
+FLASH_QKV_SHAPES = [(3, 12, 128), (2, 25, 128), (2, 12, 1024), (1, 25, 1024),
+                    (8, 12, 896)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,NH,T", FLASH_SHAPES)
-def test_flash_attention_matches_plain_on_the_card(cuda, B, NH, T):  # noqa: F811
-    """causal_attention_flash against its plain version on N(0, 1) bf16
-    inputs: |kernel - plain| <= 2^-7 |plain| + 2e-3 (one bf16 ulp, plus
-    room for the kernel's other tile order, which rounds p to bf16 at
-    other points), and within 2e-2 of the f32 dense attention (the JAX
-    kernel's docstring scale); one launch a call."""
+def _flash_inputs(cuda, B, NH, T, qkv):
+    """N(0, 1) bf16 q, k, v from a seed: contiguous (B, NH, T, 64), or the
+    (B, NH, T, 64) views of one (B, T, 3 NH 64) buffer."""
+    rng = np.random.default_rng(B * 1000 + NH * 10 + T + (7 if qkv else 0))
+    if not qkv:
+        return [torch.from_numpy(rng.standard_normal((B, NH, T, 64))
+                                 .astype(np.float32)).to(cuda).bfloat16()
+                for _ in range(3)]
+    buf = torch.from_numpy(rng.standard_normal((B, T, 3 * NH * 64))
+                           .astype(np.float32)).to(cuda).bfloat16()
+    return [x.reshape(B, T, NH, 64).transpose(1, 2)
+            for x in buf.split(NH * 64, dim=-1)]
+
+
+def _flash_check(cuda, q, k, v):
+    """causal_attention_flash against its plain version: |kernel - plain|
+    <= 2^-7 |plain| + 2e-3 (one bf16 ulp, plus room for the kernel's other
+    tile order, which rounds p to bf16 at other points), and within 2e-2
+    of the f32 dense attention (the JAX kernel's docstring scale); one
+    launch a call. Returns the kernel's output."""
     from llmc_paged_tpu_torch.ops import flash_attention as FA
     from llmc_paged_tpu_torch.ops.layers import causal_attention
     assert not torch.backends.cuda.matmul.allow_tf32
-    rng = np.random.default_rng(B * 1000 + NH * 10 + T)
-    q, k, v = (torch.from_numpy(rng.standard_normal((B, NH, T, 64))
-                                .astype(np.float32)).to(cuda).bfloat16()
-               for _ in range(3))
     before = FA.LAUNCHES["causal_attention_flash"]
     got = FA.causal_attention_flash(q, k, v)
     torch.cuda.synchronize()
@@ -926,10 +938,40 @@ def test_flash_attention_matches_plain_on_the_card(cuda, B, NH, T):  # noqa: F81
     assert bool((d <= 2.0 ** -7 * ref.abs() + 2e-3).all()), float(d.max())
     dense = causal_attention(q.float(), k.float(), v.float())
     assert float((got.float() - dense).abs().max()) <= 2e-2
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,NH,T", FLASH_SHAPES)
+def test_flash_attention_matches_plain_on_the_card(cuda, B, NH, T):  # noqa: F811
+    """causal_attention_flash against its plain version on contiguous
+    N(0, 1) bf16 inputs (tolerances of _flash_check)."""
+    _flash_check(cuda, *_flash_inputs(cuda, B, NH, T, qkv=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,NH,T", FLASH_QKV_SHAPES)
+def test_flash_attention_reads_qkv_views_on_the_card(cuda, B, NH, T):  # noqa: F811
+    """The kernel on the head views of one qkv buffer, uncopied (same
+    tolerances); its output is the (B, NH, T, 64) view of a (B, T, NH, 64)
+    tensor, so the callers' transpose(1, 2).reshape(B, T, C) shares its
+    storage."""
+    q, k, v = _flash_inputs(cuda, B, NH, T, qkv=True)
+    assert not q.is_contiguous()
+    got = _flash_check(cuda, q, k, v)
+    flat = got.transpose(1, 2).reshape(B, T, NH * 64)
+    assert flat.data_ptr() == got.data_ptr()
+    assert (flat.untyped_storage().data_ptr()
+            == got.untyped_storage().data_ptr())
+    assert flat.is_contiguous()
 
 
 @pytest.mark.cuda
 def test_flash_attention_rejects_what_it_does_not_take(cuda):  # noqa: F811
+    """Each refusal raises before any launch: dtype, head size, T, a last
+    dim that is not contiguous, a stride that is not a multiple of 8
+    elements, shapes that differ, another device, an unaligned base (also
+    of a strided view)."""
     from llmc_paged_tpu_torch.ops import flash_attention as FA
     shape = (2, 3, 256, 64)
     q = torch.randn(shape, device=cuda).bfloat16()
@@ -943,8 +985,13 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):  # noqa: F811
     with pytest.raises(ValueError, match="multiple of 128"):
         FA.causal_attention_flash(odd, odd, odd)
     with pytest.raises(ValueError, match="contiguous"):
-        FA.causal_attention_flash(q, q.transpose(1, 2).contiguous()
-                                  .transpose(1, 2), q)
+        FA.causal_attention_flash(q, q.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.causal_attention_flash(q, wide[..., ::2], q)
+    ragged = torch.randn((2, 3, 256, 68), device=cuda).bfloat16()[..., :64]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FA.causal_attention_flash(q, ragged, q)
     with pytest.raises(ValueError, match="shape"):
         FA.causal_attention_flash(q, q[:1].contiguous(), q)
     with pytest.raises(ValueError, match="is on"):
@@ -953,4 +1000,8 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):  # noqa: F811
     shifted = flat[1:].view(shape)              # contiguous, 2 bytes off
     with pytest.raises(ValueError, match="16-byte aligned"):
         FA.causal_attention_flash(q, shifted, q)
+    buf = torch.randn((2, 256, 3 * 64 + 8), device=cuda).bfloat16()
+    off = buf[..., 4:4 + 3 * 64].reshape(2, 256, 3, 64).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # 8 bytes off
+        FA.causal_attention_flash(q, off, q)
     assert FA.LAUNCHES["causal_attention_flash"] == before

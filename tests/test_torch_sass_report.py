@@ -102,3 +102,46 @@ def test_against_finds_changed_parts_instances(monkeypatch, tmp_path,
                       "--kernel", "mmaf"])
     assert summary["against"] == {"kernel": "mmaf", "compared": 1,
                                   "identical": 1, "changed": []}
+
+
+PTXAS_TMA = """\
+ptxas info    : Compiling entry function '_Z5flashv' for 'sm_90a'
+ptxas info    : Function properties for _Z5flashv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 32 bytes smem
+"""
+
+SASS_TMA = """\
+\t\tFunction : _Z5flashv
+        /*0000*/                   UTMALDG.4D [UR8], [UR4], desc[UR6] ;     /* 0x00000008040075b4 */
+                                                              /* 0x0003e20008019000 */
+        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;  /* 0x01e00000081879f0 */
+                                                              /* 0x000fe2000bf00018 */
+        /*0020*/                   HGMMA.64x64x16.F32.BF16 R88, R120, gdesc[UR12].tnspB, R88 ;  /* 0x40e0000c78587df0 */
+                                                              /* 0x000fe2000bf00858 */
+        /*0030*/                   UTMALDG.4D [UR16], [UR4], desc[UR6] ;     /* 0x00000010040075b4 */
+                                                              /* 0x0003e20008019000 */
+        /*0040*/                   EXIT ;                     /* 0x000000000000794d */
+"""
+
+
+def test_compile_report_counts_hgmma_tma_loads_and_smem(monkeypatch):
+    """A wgmma + TMA kernel: HGMMA (both the shared-memory and the
+    register-A form) and UTMALDG are counted, HMMA is 0, and ptxas's
+    static shared memory is read."""
+    monkeypatch.setattr(S, "nvcc_path", lambda: "fake-cuda/bin/nvcc")
+
+    def run(cmd, input=None, capture_output=True, text=True, check=False):
+        tool = cmd[0].rsplit("/", 1)[-1]
+        if tool == "nvcc":
+            return types.SimpleNamespace(returncode=0, stdout="",
+                                         stderr=PTXAS_TMA)
+        if tool == "cuobjdump":
+            return types.SimpleNamespace(returncode=0, stdout=SASS_TMA)
+        return types.SimpleNamespace(returncode=0, stdout=input)
+
+    monkeypatch.setattr(S.subprocess, "run", run)
+    (rec,) = S.compile_report("/src", "flash_attention")
+    assert (rec["hgmma"], rec["hmma"], rec["utmaldg"]) == (2, 0, 2)
+    assert (rec["registers"], rec["smem"], rec["spill_stores"]) == (168, 32, 0)
+    assert rec["instructions"] == 5
