@@ -118,6 +118,22 @@ Phases (any failed check raises, and the script exits non-zero):
      tok/s and the device ms of each prefill wave (CUDA events around
      prefill_paged); at 1558M a prefill of 8 x 896 (48 launches, ms a call on
      both routes) and the engine with 32 new tokens on the three routes.
+ 15. (run after phase 14, before phases 11 and 12) evaluation and
+     single-device training (eval.py, train.py, utils/dataloader.py), a
+     path with no hand-written kernel (every wrapper's launches stay 0):
+     (a) the tiny config (L=2, NH=4, C=128, V=257, T=64, B=4), 5 AdamW
+     steps on one batch on the card (fp32, TF32 off) and on the CPU from
+     the same seeded params: losses within 1e-4, step-0 grads within
+     rtol 1e-4 / atol 1e-6; (b) GPT-2 124M at full width, train() 6
+     steps at B=4, T=1024 on one repeated batch (ms a step, tok/s, peak
+     memory), then evaluate() in fp32, bf16 and int8 (|delta| <= 0.05);
+     (c) the tiny config of tests/test_quant_trained.py (T=128, B=8)
+     trained on SURVEY.md + docs/layernorm.md (byte tokens, encoded here
+     as tools/prepro_text.py does) for 300 steps (+300 while val >= 3.2):
+     val < 3.2 and the int8 and bf16 val losses within 0.05 of fp32;
+     (d) python -m llmc_paged_tpu_torch.train from scratch on the card
+     (--val-every, --sample-every, --save), then python -m
+     llmc_paged_tpu_torch.eval on the saved checkpoint in three dtypes.
 Every kernel time is the lab harness's: CUDA events over launches queued
 behind a sleep kernel, the median of 3 runs.
 The line before the last is a JSON object {"kernels": [...]} (fifteen
@@ -1891,6 +1907,264 @@ def phase_probe(pa) -> list:
     return records
 
 
+# ---- phase 15: evaluation and training --------------------------------------
+
+TRAIN_DOCS = ("SURVEY.md", os.path.join("docs", "layernorm.md"))
+EOT_BYTE, VAL_TOKENS = 256, 8192
+# the trained-weights gate of tests/test_quant_trained.py:53-57
+DOCS_CFG = dict(max_seq_len=128, vocab_size=257, num_layers=2, num_heads=4,
+                channels=128)
+DOCS_B, DOCS_LEG, DOCS_VAL_MAX = 8, 300, 3.2
+QUALITY_GATE = 0.05      # |int8 - fp32| and |bf16 - fp32| val loss
+# part (a): card against CPU at the tiny size
+PARITY_CFG = dict(max_seq_len=64, vocab_size=257, num_layers=2, num_heads=4,
+                  channels=128)
+PARITY_B, PARITY_STEPS = 4, 5
+# part (b): GPT-2 124M at full width
+WIDE_B, WIDE_T, WIDE_STEPS, WIDE_EVAL_BATCHES = 4, 1024, 6, 4
+
+
+def docs_corpus(root=HERE):
+    """(train, val) int32 token streams of the repo's own text, as
+    ``tools/prepro_text.py --encoder byte --val-tokens 8192`` makes them
+    from SURVEY.md and docs/layernorm.md joined by a blank line: each
+    non-blank "\\n\\n" document after EOT 256, as UTF-8 bytes; the first
+    8192 tokens are the val split."""
+    import numpy as np
+    text = "\n\n".join(open(os.path.join(root, d), encoding="utf-8").read()
+                       for d in TRAIN_DOCS)
+    toks = []
+    for doc in text.split("\n\n"):
+        if doc.strip():
+            toks.append(EOT_BYTE)
+            toks.extend(doc.encode("utf-8"))
+    toks = np.asarray(toks, dtype=np.int32)
+    return toks[VAL_TOKENS:], toks[:VAL_TOKENS]
+
+
+def fixed_batch_loader(torch, path, B, T, V, seed):
+    """A DataLoader over a seeded stream of B*T+1 tokens: it wraps every
+    batch, so each step sees the same (x, y)."""
+    from llmc_paged_tpu_torch import formats
+    from llmc_paged_tpu_torch.utils.dataloader import DataLoader
+    g = torch.Generator().manual_seed(seed)
+    formats.write_token_stream(
+        path, torch.randint(0, V, (B * T + 1,), generator=g).numpy())
+    return DataLoader(path, B, T)
+
+
+def step_ms(lines):
+    """The host ms of each training step from train()'s log lines."""
+    return [float(s.rsplit("(took ", 1)[1].split(" ms")[0]) for s in lines
+            if ": train loss " in s]
+
+
+def train_parity(torch, tmp, device):
+    """(a) 5 AdamW steps of the tiny config on one fixed batch, fp32 with
+    TF32 off on the card and on the CPU from the same seeded params:
+    losses within 1e-4 a step, step-0 gradients within rtol 1e-4 and
+    atol 1e-6 a leaf."""
+    from llmc_paged_tpu_torch.config import GPT2Config
+    from llmc_paged_tpu_torch.models import gpt2
+    from llmc_paged_tpu_torch.train import train
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "train parity: TF32 is on")
+    cfg = GPT2Config.tiny(**PARITY_CFG)
+    loader = fixed_batch_loader(torch, os.path.join(tmp, "fixed.bin"),
+                                PARITY_B, cfg.max_seq_len, cfg.vocab_size, 1)
+    p_cpu = gpt2.init_params(cfg, torch.Generator().manual_seed(2),
+                             device="cpu")
+    p_dev = gpt2.to_device(p_cpu, cfg, device=device)
+    x, y = loader.next_batch()
+    _, g_cpu = gpt2.grad_fn(p_cpu, x, y, cfg)
+    _, g_dev = gpt2.grad_fn(p_dev, x, y, cfg)
+    bad = [k for k in g_cpu if not torch.allclose(
+        g_dev[k].cpu(), g_cpu[k], rtol=1e-4, atol=1e-6)]
+    gerr = max(float((g_dev[k].cpu() - g_cpu[k]).abs().max()) for k in g_cpu)
+    check(not bad, f"train parity: step-0 grads differ on {bad}")
+    runs = {}
+    for name, p in (("cpu", p_cpu), ("card", p_dev)):
+        loader.reset()
+        runs[name] = train(cfg, p, loader, steps=PARITY_STEPS,
+                           sample_every=0, log=lambda *_: None)[1]
+    d = max(abs(a - b) for a, b in zip(runs["cpu"], runs["card"]))
+    log(f"  (a) tiny L=2 C=128 V=257 B={PARITY_B} T={cfg.max_seq_len}: "
+        f"{PARITY_STEPS} AdamW steps, card {[round(v, 6) for v in runs['card']]}"
+        f", |card - cpu| max {d:.3e} (tol 1e-4); step-0 grads max|d| "
+        f"{gerr:.3e} (rtol 1e-4, atol 1e-6)")
+    check(d <= 1e-4 and runs["card"][-1] < runs["card"][0],
+          f"train parity: losses {runs}")
+
+
+def train_wide(torch, params32, cfg, tmp):
+    """(b) GPT-2 124M at full width: train() on one repeated batch of
+    4 x 1024, then evaluate() in fp32, bf16 and int8."""
+    import numpy as np
+    from llmc_paged_tpu_torch import formats
+    from llmc_paged_tpu_torch.eval import evaluate
+    from llmc_paged_tpu_torch.models import gpt2
+    from llmc_paged_tpu_torch.ops.int8 import quantize_params
+    from llmc_paged_tpu_torch.train import train
+    from llmc_paged_tpu_torch.utils.dataloader import DataLoader
+    loader = fixed_batch_loader(torch, os.path.join(tmp, "wide.bin"),
+                                WIDE_B, WIDE_T, cfg.vocab_size, 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    lines = []
+    params, losses = train(cfg, params32, loader, steps=WIDE_STEPS,
+                           sample_every=0, log=lines.append)
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(step_ms(lines)[1:]))
+    log(f"  (b) 124M B={WIDE_B} T={WIDE_T}: losses "
+        f"{[round(v, 4) for v in losses]}; {ms:.2f} ms a step (median of "
+        f"steps 2-{WIDE_STEPS}, host clock; all {step_ms(lines)}), "
+        f"{WIDE_B * WIDE_T / ms * 1e3:.0f} training tok/s; peak "
+        f"{peak / 2**30:.2f} GiB allocated ({(peak - base) / 2**30:.2f} "
+        f"GiB above the {base / 2**30:.2f} held before)")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"124M training: losses {losses}")
+    g = torch.Generator().manual_seed(4)
+    val = os.path.join(tmp, "wide_val.bin")
+    formats.write_token_stream(val, torch.randint(
+        0, cfg.vocab_size, (WIDE_EVAL_BATCHES * WIDE_B * WIDE_T + 1,),
+        generator=g).numpy())
+    val_loader = DataLoader(val, WIDE_B, WIDE_T)
+    evals = {}
+    for dt in ("float32", "bfloat16", "int8"):
+        p = (gpt2.to_device(params, cfg, torch.bfloat16,
+                            device=params["wpe"].device)
+             if dt == "bfloat16" else quantize_params(params)
+             if dt == "int8" else params)
+        evaluate(cfg, p, val_loader, 1)                    # warm-up
+        t0 = time.monotonic()
+        loss = evaluate(cfg, p, val_loader, WIDE_EVAL_BATCHES)
+        evals[dt] = (loss, (time.monotonic() - t0) * 1e3 / WIDE_EVAL_BATCHES)
+        del p
+    log("  (b) 124M evaluate(), 4 batches of 4 x 1024: " + ", ".join(
+        f"{dt} {l:.6f} ({t:.2f} ms a batch)" for dt, (l, t) in evals.items()))
+    for dt in ("bfloat16", "int8"):
+        d = abs(evals[dt][0] - evals["float32"][0])
+        check(d <= QUALITY_GATE, f"124M eval: |{dt} - fp32| = {d:.4f}")
+
+
+def train_docs(torch, tmp, device):
+    """(c) The tiny config trained on the repo's own text: val < 3.2 and
+    the int8 and bf16 val losses within 0.05 of fp32 on held-out text."""
+    from llmc_paged_tpu_torch import formats
+    from llmc_paged_tpu_torch.config import GPT2Config
+    from llmc_paged_tpu_torch.eval import evaluate
+    from llmc_paged_tpu_torch.models import gpt2
+    from llmc_paged_tpu_torch.ops.int8 import quantize_params
+    from llmc_paged_tpu_torch.train import train
+    from llmc_paged_tpu_torch.utils.dataloader import DataLoader
+    train_toks, val_toks = docs_corpus()
+    paths = {k: os.path.join(tmp, f"docs_{k}.bin") for k in ("train", "val")}
+    formats.write_token_stream(paths["train"], train_toks)
+    formats.write_token_stream(paths["val"], val_toks)
+    cfg = GPT2Config.tiny(**DOCS_CFG)
+    T = cfg.max_seq_len
+    train_loader = DataLoader(paths["train"], DOCS_B, T)
+    val_loader = DataLoader(paths["val"], DOCS_B, T)
+    params = gpt2.init_params(cfg, torch.Generator(device).manual_seed(7),
+                              device=device)
+    loss0 = evaluate(cfg, params, val_loader, 4)
+    t0 = time.monotonic()
+    steps = 0
+    for _ in range(2):
+        params, _ = train(cfg, params, train_loader, steps=DOCS_LEG,
+                          lr=1e-3, weight_decay=0.1, sample_every=0,
+                          log=lambda *_: None)
+        steps += DOCS_LEG
+        if evaluate(cfg, params, val_loader, 4) < DOCS_VAL_MAX:
+            break
+    secs = time.monotonic() - t0
+    evals = {"float32": evaluate(cfg, params, val_loader, 4),
+             "bfloat16": evaluate(cfg, gpt2.to_device(
+                 params, cfg, torch.bfloat16, device=device), val_loader, 4),
+             "int8": evaluate(cfg, quantize_params(params), val_loader, 4)}
+    log(f"  (c) tiny L=2 C=128 V=257 on SURVEY.md + docs/layernorm.md "
+        f"({len(train_toks)} train, {len(val_toks)} val bytes): {steps} "
+        f"steps at lr 1e-3, wd 0.1 in {secs:.2f} s; val loss init "
+        f"{loss0:.6f}, fp32 {evals['float32']:.6f}, bf16 "
+        f"{evals['bfloat16']:.6f} ({evals['bfloat16'] - evals['float32']:+.6f}"
+        f"), int8 {evals['int8']:.6f} "
+        f"({evals['int8'] - evals['float32']:+.6f})")
+    check(evals["float32"] < DOCS_VAL_MAX,
+          f"docs training: val loss {evals['float32']} >= {DOCS_VAL_MAX}")
+    for dt in ("bfloat16", "int8"):
+        d = abs(evals[dt] - evals["float32"])
+        check(d <= QUALITY_GATE, f"docs eval: |{dt} - fp32| = {d:.4f}")
+    return paths
+
+
+def run_entry_point(argv, want):
+    """``python -m`` an entry point of the port with LLMC_PLATFORM unset
+    (so it runs on the card); it must exit 0 and print ``want``."""
+    env = {k: v for k, v in os.environ.items() if k != "LLMC_PLATFORM"}
+    env["PYTHONPATH"] = HERE
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-m"] + argv, cwd=HERE, env=env,
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0 and want in out.stdout,
+          f"{argv[0]} exited {out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    log(f"  (d) python -m {argv[0]} ({time.monotonic() - t0:.1f} s): "
+        f"{lines[-1]}")
+    return lines
+
+
+def entry_points(tmp, paths):
+    """(d) The train CLI from scratch on the card, with --val-every,
+    --sample-every and --save, then the eval CLI on the saved checkpoint
+    in the three dtypes."""
+    from llmc_paged_tpu_torch import formats
+    from llmc_paged_tpu_torch.tokenizer import byte_fallback_table
+    tok = os.path.join(tmp, "docs_tokenizer.bin")
+    formats.write_tokenizer_bin(tok, byte_fallback_table(DOCS_CFG[
+        "vocab_size"]))
+    save = os.path.join(tmp, "trained.bin")
+    lines = run_entry_point(
+        ["llmc_paged_tpu_torch.train", "--train-data", paths["train"],
+         "--val-data", paths["val"], "--tokenizer", tok, "--steps", "6",
+         "--batch", "8", "--seq-len", "128", "--layers", "2", "--heads",
+         "4", "--channels", "128", "--vocab", "257", "--max-seq-len", "128",
+         "--lr", "1e-3", "--val-every", "3", "--sample-every", "5", "--save",
+         save], "saved ")
+    check(sum(": val loss " in s for s in lines) == 2
+          and sum(": train loss " in s for s in lines) == 6
+          and any(" sample: " in s for s in lines),
+          f"train CLI: log lines {lines}")
+    for s in lines:
+        if ": val loss " in s or " sample: " in s:
+            log(f"      {s}")
+    for dt in ("float32", "bfloat16", "int8"):
+        run_entry_point(["llmc_paged_tpu_torch.eval", "--checkpoint", save,
+                         "--data", paths["val"], "--dtype", dt, "--batch",
+                         "8", "--seq-len", "128", "--batches", "4"],
+                        f"dtype={dt} val loss ")
+
+
+def phase_training(torch, pa, params32, cfg, device):
+    """Phase 15: evaluation and single-device training on the card. No
+    hand-written kernel lies on this path (the forward is dense, the int8
+    linear plain): every wrapper's launches stay 0 in process."""
+    from llmc_paged_tpu_torch.ops import int8
+    reset_counts(pa)
+    for k in int8.LAUNCHES:
+        int8.LAUNCHES[k] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        train_parity(torch, tmp, device)
+        train_wide(torch, params32, cfg, tmp)
+        paths = train_docs(torch, tmp, device)
+        launched = {k: v for d in (pa.LAUNCHES, int8.LAUNCHES)
+                    for k, v in d.items() if v}
+        check(not launched and flash_launches() == 0,
+              f"training/eval path launched {launched}, flash "
+              f"{flash_launches()}")
+        entry_points(tmp, paths)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2226,6 +2500,12 @@ def main() -> int:
     phase(f"phase 14: the long-prompt bf16 prefill through the flash "
           f"kernel, {LONG_PROMPT}-token prompts at 124M and 1558M")
     flash = phase_long_prefill(torch, pa, params32, cfg, device)
+
+    # 15. evaluation and training, host-timed, so also before any trace
+    phase("phase 15: evaluation and single-device training (train.py, "
+          "eval.py): card against CPU, GPT-2 124M at full width, trained "
+          "int8/bf16 gates, the two CLIs")
+    phase_training(torch, pa, params32, cfg, device)
 
     # 11. the kernel lab (its main path: the sweeps), then its kernels
     # timed

@@ -10,6 +10,8 @@ a GPU, nvcc or triton.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 __version__ = "0.1.0"
@@ -25,3 +27,30 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def platform_device():
+    """The device LLMC_PLATFORM asks for, as the entry points' CLIs read
+    it: unset → the card (None), "cpu" → the CPU; any other value
+    raises."""
+    plat = os.environ.get("LLMC_PLATFORM")
+    if not plat:
+        return None
+    if plat != "cpu":
+        raise ValueError(f"LLMC_PLATFORM={plat!r}: the torch port takes "
+                         "'cpu' (unset: the card)")
+    return "cpu"
+
+
+# The ROADMAP.md heading and bold item that the "not ported yet" errors
+# name; both must appear there verbatim.
+ROADMAP_HEADING = "Modules still to port"
+PARALLELISM = "Tensor and data parallelism"
+
+
+def not_ported(what: str, item: str = PARALLELISM) -> NotImplementedError:
+    """The error for an option that is not in the port yet, naming the
+    ROADMAP item that would serve it."""
+    return NotImplementedError(
+        f"{what} is not in the torch port yet (ROADMAP.md, "
+        f"'{ROADMAP_HEADING}': {item})")

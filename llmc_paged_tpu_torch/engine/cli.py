@@ -28,15 +28,20 @@ import json
 import os
 import time
 
-from llmc_paged_tpu_torch import formats
+from llmc_paged_tpu_torch import (
+    PARALLELISM,
+    formats,
+    not_ported,
+    platform_device,
+)
 from llmc_paged_tpu_torch.config import EngineConfig, PageConfig
 from llmc_paged_tpu_torch.engine.engine import InferenceEngine
 from llmc_paged_tpu_torch.engine.scheduler import Request
 from llmc_paged_tpu_torch.sampler import Sampler
 from llmc_paged_tpu_torch.tokenizer import Tokenizer
 
-# flag -> the ROADMAP item ("Left to port") that would serve it
-LATER_FLAGS = {"mesh_model": "training and tensor parallelism"}
+# flag -> the ROADMAP item that would serve it
+LATER_FLAGS = {"mesh_model": PARALLELISM}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -127,18 +132,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def platform_device():
-    """The device LLMC_PLATFORM asks for: unset → the card (None),
-    "cpu" → the CPU; any other value raises."""
-    plat = os.environ.get("LLMC_PLATFORM")
-    if not plat:
-        return None
-    if plat != "cpu":
-        raise ValueError(f"LLMC_PLATFORM={plat!r}: the torch port takes "
-                         "'cpu' (unset: the card)")
-    return "cpu"
-
-
 def start_profile(device):
     """A started torch.profiler session over the CPU and, on the card,
     CUDA activity."""
@@ -167,8 +160,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     for flag, item in LATER_FLAGS.items():
         if getattr(args, flag):
-            parser.error(f"--{flag.replace('_', '-')} is not in the torch "
-                         f"port yet (ROADMAP.md, 'Left to port': {item})")
+            parser.error(str(not_ported(f"--{flag.replace('_', '-')}",
+                                        item)))
     device = platform_device()
     cfg, params = formats.read_checkpoint(args.checkpoint)
     tok = Tokenizer.from_file(args.tokenizer) if args.tokenizer else None

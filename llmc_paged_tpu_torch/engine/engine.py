@@ -65,7 +65,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from llmc_paged_tpu_torch import resolve_device
+from llmc_paged_tpu_torch import not_ported, resolve_device
 from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config, PageConfig
 from llmc_paged_tpu_torch.engine.scheduler import Request, Scheduler, State
 from llmc_paged_tpu_torch.kv.layouts import init_pool, to_device, token_coords
@@ -83,12 +83,6 @@ from llmc_paged_tpu_torch.sampler import (
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the torch port yet (ROADMAP.md, 'Left to port': "
-        f"{item})")
 
 
 def _bucket(n: int, step: int = 16) -> int:
@@ -363,7 +357,7 @@ class InferenceEngine:
                 "accepts argmax matches; rejection sampling for the "
                 "stochastic samplers is not implemented")
         if econf.mesh_shape:
-            raise _later("mesh_shape", "training and tensor parallelism")
+            raise not_ported("mesh_shape")
         if econf.param_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"param_dtype {econf.param_dtype!r}")
         if econf.activation_dtype not in _DTYPES:

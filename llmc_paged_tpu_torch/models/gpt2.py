@@ -2,7 +2,8 @@
 llmc_paged_tpu/models/gpt2.py: init, device placement, the shared block
 skeleton, logits, and the reference's two cache-free and dense-cache
 modes):
-  * ``forward``     : full recompute, no cache   (infer.c path)
+  * ``forward``     : full recompute, no cache   (infer.c path); its
+    body ``_forward`` is what ``loss_fn`` and ``grad_fn`` differentiate
   * ``prefill``     : forward that also fills a dense KV cache
   * ``decode_step`` : one-token step over the dense cache
     (cached_infer.c path, without its rebuild-qkv copy)
@@ -22,7 +23,7 @@ import torch
 
 from llmc_paged_tpu_torch import resolve_device
 from llmc_paged_tpu_torch.config import GPT2Config
-from llmc_paged_tpu_torch.formats import param_shapes
+from llmc_paged_tpu_torch.formats import param_shapes, read_checkpoint
 from llmc_paged_tpu_torch.ops import layers as L
 from llmc_paged_tpu_torch.ops.int8 import int8_linear
 
@@ -51,6 +52,11 @@ def init_cache(cfg: GPT2Config, batch: int, max_len: int,
     shape = (cfg.num_layers, batch, cfg.num_heads, max_len, cfg.head_dim)
     return DenseKVCache(torch.zeros(shape, dtype=dtype, device=device),
                         torch.zeros(shape, dtype=dtype, device=device))
+
+
+def load_params(path: str):
+    """(config, numpy params) of a model .bin (fp32 or bf16 checkpoint)."""
+    return read_checkpoint(path)
 
 
 def init_params(cfg: GPT2Config, generator: torch.Generator,
@@ -155,12 +161,12 @@ def _logits(x: torch.Tensor, params: Params, cfg: GPT2Config):
     return logits[..., : cfg.vocab_size]
 
 
-@torch.no_grad()
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: GPT2Config) -> torch.Tensor:
-    """Full no-cache forward: tokens (B, T) → logits (B, T, V)."""
+def _forward(params: Params, tokens, cfg: GPT2Config) -> torch.Tensor:
+    """The full no-cache forward that autograd can differentiate: tokens
+    (B, T) → logits (B, T, V). Attention is the dense causal one, never
+    the flash kernel (it has no backward), as in the JAX package."""
     dev = params["wpe"].device
-    tokens = tokens.to(dev)
+    tokens = torch.as_tensor(tokens, device=dev)
     B, T = tokens.shape
     x = _embed(params, tokens, torch.arange(T, device=dev)[None])
     stack = _layer_stack(params)
@@ -173,6 +179,33 @@ def forward(params: Params, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         x = _block(x, _layer(stack, i), cfg, attend)
     return _logits(x, params, cfg)
+
+
+@torch.no_grad()
+def forward(params: Params, tokens: torch.Tensor,
+            cfg: GPT2Config) -> torch.Tensor:
+    """Full no-cache forward: tokens (B, T) → logits (B, T, V)."""
+    return _forward(params, tokens, cfg)
+
+
+def loss_fn(params: Params, x, y, cfg: GPT2Config) -> torch.Tensor:
+    """Mean next-token NLL of inputs x (B, T) against targets y (B, T),
+    a 0-dim tensor that autograd can differentiate (JAX gpt2.py:208-211).
+    x and y may be tensors or numpy arrays; they move to the params'
+    device."""
+    logits = _forward(params, x, cfg)
+    return L.softmax_cross_entropy(
+        logits, torch.as_tensor(y, device=logits.device))
+
+
+def grad_fn(params: Params, x, y, cfg: GPT2Config):
+    """(loss, grads) like ``jax.value_and_grad(loss_fn)``: grads is a
+    dict with the params' keys. The caller's tensors are left as they
+    are. The tied wte gets the sum of its embedding and lm_head uses."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = loss_fn(leaves, x, y, cfg)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
 
 
 @torch.no_grad()

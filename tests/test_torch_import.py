@@ -25,6 +25,8 @@ def _port_modules():
 
 def test_import_leaves_jax_and_the_jax_package_out():
     """A fresh interpreter (the test process already imported jax)."""
+    assert {"llmc_paged_tpu_torch.eval", "llmc_paged_tpu_torch.train",
+            "llmc_paged_tpu_torch.utils.dataloader"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}:\n"
@@ -56,6 +58,8 @@ def test_no_source_names_jax_or_the_jax_package():
             ("server.py", "http_server.py")} <= set(files)
     assert {os.path.join(PKG, "ops", "flash_attention.py"),
             os.path.join(PKG, "csrc", "flash_attention.cu")} <= set(files)
+    assert {os.path.join(PKG, "eval.py"), os.path.join(PKG, "train.py"),
+            os.path.join(PKG, "utils", "dataloader.py")} <= set(files)
     hits = []
     for f in files:
         with open(f) as fh:
@@ -65,7 +69,7 @@ def test_no_source_names_jax_or_the_jax_package():
     assert not hits, hits
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(fixtures_dir, monkeypatch):
     """device=None means the card: without one it raises, never falls
     back to the CPU."""
     if torch.cuda.is_available():
@@ -90,6 +94,82 @@ def test_entry_points_default_to_the_card():
         probe_decode.main(["--skip", ",".join(probe_decode.SUITES)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         probe_decode.gemv_suite(8, cfg)
+    # training from scratch and its CLI
+    from llmc_paged_tpu_torch import train
+    monkeypatch.delenv("LLMC_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--train-data", os.path.join(fixtures_dir,
+                                                 "tokens_tiny.bin"),
+                    "--steps", "1", "--layers", "1", "--channels", "32",
+                    "--vocab", "256", "--max-seq-len", "16"])
+
+
+@pytest.mark.parametrize("module", ["eval", "train"])
+def test_eval_and_train_clis_default_to_the_card(fixtures_dir, module):
+    """``python -m`` the two entry points with LLMC_PLATFORM unset exits
+    non-zero with the no-CUDA message when there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    data = os.path.join(fixtures_dir, "tokens_tiny.bin")
+    argv = (["--checkpoint", os.path.join(fixtures_dir, "model_tiny.bin"),
+             "--data", data] if module == "eval" else
+            ["--train-data", data, "--steps", "1"])
+    env = {k: v for k, v in os.environ.items() if k != "LLMC_PLATFORM"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-m",
+                           f"llmc_paged_tpu_torch.{module}"] + argv,
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
+
+
+def _not_ported_message(where, capsys):
+    """The "not in the port yet" error of the engine (mesh_shape), the
+    serving CLI (--mesh-model), train() (data_parallel) or the train CLI
+    (--data-parallel)."""
+    import dataclasses
+
+    from llmc_paged_tpu_torch import train
+    from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config
+    from llmc_paged_tpu_torch.engine import cli
+    from llmc_paged_tpu_torch.engine.engine import InferenceEngine
+    from llmc_paged_tpu_torch.models import gpt2
+    cfg = GPT2Config.tiny()
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    if where in ("cli", "train_cli"):
+        main, argv = ((cli.main, ["--checkpoint", "x", "--data", "x",
+                                  "--mesh-model", "2"]) if where == "cli"
+                      else (train.main, ["--train-data", "x",
+                                         "--data-parallel", "2"]))
+        with pytest.raises(SystemExit) as exc:
+            main(argv)
+        assert exc.value.code == 2
+        return capsys.readouterr().err.strip().splitlines()[-1]
+    with pytest.raises(NotImplementedError) as exc:
+        if where == "engine":
+            InferenceEngine(params, cfg, dataclasses.replace(
+                EngineConfig(greedy=True), mesh_shape={"model": 2}),
+                device="cpu")
+        else:
+            train.train(cfg, params, None, data_parallel=2)
+    return str(exc.value)
+
+
+@pytest.mark.parametrize("where", ["engine", "cli", "train", "train_cli"])
+def test_not_ported_messages_name_a_roadmap_item(capsys, where):
+    """Each message names a ROADMAP.md heading and a bold item under it
+    that appear there verbatim."""
+    msg = _not_ported_message(where, capsys)
+    m = re.search(r"\(ROADMAP\.md, '([^']+)': ([^)]+)\)$", msg)
+    assert m, msg
+    heading, item = m.groups()
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        roadmap = f.read()
+    at = roadmap.find(f"### 1. {heading}")
+    assert at >= 0, heading
+    assert f"**{item}" in roadmap[at:roadmap.find("\n### ", at + 1)], item
 
 
 def test_options_outside_the_slice_raise():
