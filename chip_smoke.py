@@ -6,7 +6,8 @@
 Phases (any failed check raises, and the script exits non-zero):
   1. device: name, power limit, torch/CUDA versions; TF32 off;
   2. build: the nine CUDA kernel sources in the checkout, one nvcc per
-     source, all started together;
+     source, all started together, and beside them the native block
+     manager's host library (csrc/block_manager.cpp, g++);
   3. kernels vs plain versions: the flash-decode parts kernel, the
      multi-query parts kernel and the normalized grid kernel against their
      plain PyTorch versions for
@@ -79,8 +80,14 @@ Phases (any failed check raises, and the script exits non-zero):
      launches equal the calls the probe made; then one torch.profiler
      trace of the grid kernel's CLI-shape call from phase 3 against the
      timer, and the CLI's --profile on a tiny checkpoint (its Chrome
-     trace holds CPU operator events and the card's parts kernels; last,
-     so that no host-timed phase follows a profiler session).
+     trace holds CPU operator events and the card's parts kernels),
+     read by ops/dev/dump_chunk_trace.read_trace (busy ms, idle share,
+     top kernels, longest gaps); last, ops/dev/dump_chunk_trace at the
+     JAX tool's defaults (124M, prompt 128, pool-mult 4, chunk 32, B 8)
+     in int8 and float32: the per-step and per-chunk census of operators
+     on a pool plane, parts kernels in the trace = L x steps, and the
+     chunk trace's idle share (profiler sessions come last, so that no
+     host-timed phase follows one).
  13. (run after phase 10, before phases 11 and 12, so that no host-timed
      phase follows a profiler session) the serving front on the card:
      GPT-2 124M at full width, ps 128, max_batch 8, device sampling.
@@ -134,6 +141,19 @@ Phases (any failed check raises, and the script exits non-zero):
      (d) python -m llmc_paged_tpu_torch.train from scratch on the card
      (--val-every, --sample-every, --save), then python -m
      llmc_paged_tpu_torch.eval on the saved checkpoint in three dtypes.
+ 16. (run after phase 15, before phases 11 and 12) the native block
+     manager (kv/native.py over csrc/block_manager.cpp) under the engine
+     against the Python one, the managers' methods wrapped with a host
+     clock on the instance: (a) the library's build seconds; (b) phase
+     4's engine with native_manager False, True, True, False in turns:
+     equal streams, tok/s, the t_* buckets and manager ms a step; (c)
+     phase 9's settings (ps 32, fp32, seed 1337, top-k 40, host
+     sampling), native against Python: equal streams, host and manager
+     ms a step; (d) phase 6's preempting queue: equal streams,
+     preemptions (> 0) and peak pages; (e) phase 8's prefix caching, a
+     cold and an adopting run: equal streams and prefix stats on the
+     native prefix manager; (f) native_manager=None builds native
+     managers (kv.native.make_block_manager wrapped).
 Every kernel time is the lab harness's: CUDA events over launches queued
 behind a sleep kernel, the median of 3 runs.
 The line before the last is a JSON object {"kernels": [...]} (fifteen
@@ -153,6 +173,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -532,7 +553,9 @@ def profile_cli(torch, pa):
     """The CLI's --profile on the card: a greedy batch on a tiny
     checkpoint; the Chrome trace it writes must hold CPU operator events
     and the card's parts kernels. Returns (CPU events, parts kernel
-    events, parts launches)."""
+    events, parts launches, ops/dev/dump_chunk_trace.read_trace of the
+    trace)."""
+    from llmc_paged_tpu_torch.ops.dev.dump_chunk_trace import read_trace
     from llmc_paged_tpu_torch import formats
     from llmc_paged_tpu_torch.config import GPT2Config
     from llmc_paged_tpu_torch.engine import cli
@@ -557,6 +580,7 @@ def profile_cli(torch, pa):
                       "--pages-per-seq=8", f"--profile={d}/prof"])
         with open(os.path.join(d, "prof", "trace.json")) as f:
             events = json.load(f)["traceEvents"]
+        summary = read_trace(os.path.join(d, "prof", "trace.json"))
     cpu = sum(e.get("cat") == "cpu_op" for e in events)
     parts = sum(e.get("cat") == "kernel" and "parts_kernel" in e["name"]
                 for e in events)
@@ -564,7 +588,50 @@ def profile_cli(torch, pa):
     check(cpu > 0 and parts > 0 and launches > 0,
           f"cli --profile: {cpu} CPU operator events, {parts} parts kernel "
           f"events, {launches} parts launches in the trace's run")
-    return cpu, parts, launches
+    return cpu, parts, launches, summary
+
+
+def trace_summary(r) -> str:
+    """One log line of a read_trace record."""
+    if r["idle_share"] is None:
+        return "no device activity in the trace"
+    top = ", ".join(f"{k['name'][:60]} x{k['count']} {k['ms']:.3f} ms"
+                    for k in r["top_kernels"])
+    gaps = ", ".join(f"{g['ms']:.3f} ms at {g['start_ms']:.3f} ms "
+                     f"({g['op']})" for g in r["gaps"])
+    return (f"busy {r['busy_ms']:.3f} ms of a {r['window_ms']:.3f} ms "
+            f"window, idle share {r['idle_share']:.4f}, "
+            f"{r['device_events']} device events; top kernels: {top}; "
+            f"longest gaps: {gaps}")
+
+
+def chunk_census(torch, cfg):
+    """ops/dev/dump_chunk_trace at the JAX tool's defaults (124M, prompt
+    128, pool-mult 4, chunk 32, B 8), int8 and float32, on the card: the
+    per-step and per-chunk table of pool operators, and the parts-kernel
+    launches in each trace = L x its steps. A split that is not whole is
+    logged with its raw counts, and a whole-plane copy on every step is
+    logged: both are findings, not failures."""
+    from llmc_paged_tpu_torch.ops.dev import dump_chunk_trace
+    for dtype in ("int8", "float32"):
+        lines, t0 = [], time.monotonic()
+        rec = dump_chunk_trace.run(cfg, dtype, prompt=128, pool_mult=4,
+                                   chunk=32, batch=8, device="cuda",
+                                   report=lines.append, label="124m")
+        for ln in lines:
+            log("  " + ln)
+        want = {s: cfg.num_layers * s for s in (32, 64)}
+        check(rec["parts_kernels"] == want,
+              f"chunk trace {dtype}: parts kernels {rec['parts_kernels']} "
+              f"in the traces, want L x steps {want}")
+        whole = {k: v for k, v in rec["split"].items()
+                 if k[0] == "whole plane" and v["step"]}
+        log(f"  chunk {dtype} ({time.monotonic() - t0:.1f} s): split "
+            f"{'whole' if rec['integral'] else 'NOT whole (raw counts above)'}"
+            "; whole-plane operators every step: "
+            + (json.dumps({":".join(k): v["step"] for k, v in whole.items()})
+               if whole else "none") + "; trace (S=32): "
+            + trace_summary(rec["summary"]))
 
 
 def trace_us(torch, fn, n):
@@ -689,7 +756,7 @@ def prompts_for(torch, n, lengths, V, seed, device):
 
 def make_engine(params, cfg, *, kv_dtype, param_dtype, num_pages,
                 use_kernel=True, device="cuda", pps=3, prefix=False,
-                **econf_kw):
+                native_manager=None, **econf_kw):
     """An engine at ps 128, max_batch 8, chunks of 16; "int8" adds bf16
     activations and the bf16 prefill copy (the headline configuration).
     ``econf_kw`` overrides EngineConfig fields (greedy by default)."""
@@ -706,18 +773,20 @@ def make_engine(params, cfg, *, kv_dtype, param_dtype, num_pages,
         prefill_param_dtype="bfloat16" if quant else None,
         spec_ngram=3), **econf_kw})
     return InferenceEngine(params, cfg, econf, device=device,
-                           use_kernel=use_kernel)
+                           use_kernel=use_kernel,
+                           native_manager=native_manager)
 
 
 def serve(torch, params, cfg, *, prompts, new, kv_dtype, param_dtype,
           num_pages, use_kernel=True, max_new=None, device="cuda",
-          engine=None, pps=3, spec_k=0, prefix=False):
+          engine=None, pps=3, spec_k=0, prefix=False, native_manager=None):
     from llmc_paged_tpu_torch.engine.scheduler import Request
     if engine is None:
         engine = make_engine(params, cfg, kv_dtype=kv_dtype,
                              param_dtype=param_dtype, num_pages=num_pages,
                              use_kernel=use_kernel, device=device, pps=pps,
-                             prefix=prefix, spec_k=spec_k)
+                             prefix=prefix, spec_k=spec_k,
+                             native_manager=native_manager)
     reqs = [Request(rid=i, prompt=list(p),
                     max_new_tokens=(max_new[i] if max_new else new))
             for i, p in enumerate(prompts)]
@@ -1564,6 +1633,223 @@ def phase_long_prefill(torch, pa, params32, cfg, device):
     return rec
 
 
+# ---- phase 16: the native block manager ------------------------------------
+
+# the manager methods the engine calls, timed on the instance
+MANAGER_CALLS = ("append_tokens", "block_table_array", "free_prompt",
+                 "seq_len", "num_free", "release_below", "truncate_to",
+                 "match_prefix", "adopt", "register_prompt", "num_cached")
+
+
+def timed_managers(engine):
+    """Wrap the methods of every manager ``engine`` serves on (its
+    _paged_state, on the instance) with a host clock. Returns a dict
+    that accumulates seconds, calls and the managers' types; a manager
+    kept across runs (prefix caching) is wrapped once."""
+    acc = dict(s=0.0, calls=0, kinds=[])
+    real = engine._paged_state
+
+    def wrap(fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc["s"] += time.perf_counter() - t0
+                acc["calls"] += 1
+        return timed
+
+    def paged_state():
+        mgr, pool = real()
+        acc["kinds"].append(type(mgr).__name__)
+        if not getattr(mgr, "_timed", False):
+            for name in MANAGER_CALLS:
+                if hasattr(mgr, name):
+                    setattr(mgr, name, wrap(getattr(mgr, name)))
+            mgr._timed = True
+        return mgr, pool
+
+    engine._paged_state = paged_state
+    return acc
+
+
+def manager_run(torch, engine, acc, reqs_fn, steps_key="decode_steps",
+                sampler=None):
+    """One engine.run of reqs_fn()'s requests with the managers timed:
+    (streams, stats, manager ms a step, manager calls a step)."""
+    acc["s"], acc["calls"] = 0.0, 0
+    done = engine.run(reqs_fn(), sampler=sampler)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    st = dict(engine.stats)
+    steps = max(1, st[steps_key])
+    return ({r.rid: list(r.generated) for r in done}, st,
+            1e3 * acc["s"] / steps, acc["calls"] / steps)
+
+
+def phase_native_manager(torch, pa, params32, cfg, device):
+    """Phase 16: the native block manager (csrc/block_manager.cpp) under
+    the engine against the Python one, host-timed; returns nothing,
+    raises on a disagreement."""
+    from llmc_paged_tpu_torch.config import EngineConfig, PageConfig
+    from llmc_paged_tpu_torch.engine.engine import InferenceEngine
+    from llmc_paged_tpu_torch.engine.scheduler import Request
+    from llmc_paged_tpu_torch.kv import native
+    from llmc_paged_tpu_torch.ops import _build
+    from llmc_paged_tpu_torch.sampler import Sampler
+    L = cfg.num_layers
+    # (a) the library (built in phase 2 with the host compiler)
+    lib = _build.library_path("block_manager", host=True)
+    native.load_library()
+    log(f"  (a) native library {os.path.relpath(lib, HERE)}: built in "
+        f"{_build.BUILD_SECONDS['block_manager']:.2f} s (g++ "
+        f"{' '.join(_build.CXX_FLAGS)})")
+
+    def reqs(prompts, new):
+        return lambda: [Request(rid=i, prompt=list(p),
+                                max_new_tokens=(new[i] if isinstance(
+                                    new, list) else new))
+                        for i, p in enumerate(prompts)]
+
+    def line(tag, flag, st, mgr_ms, calls, steps_key="decode_steps",
+             host_keys=("t_chain_dispatch_s", "t_materialize_s")):
+        steps = max(1, st[steps_key])
+        host_ms = 1e3 * sum(st[k] for k in host_keys) / steps
+        log(f"  {tag} {'native' if flag else 'python'}: decode_tok_per_s "
+            f"{st['decode_tok_per_s']:.1f}, {steps_key} {st[steps_key]}, "
+            f"host {host_ms:.3f} ms a step, manager {mgr_ms:.4f} ms a step "
+            f"({calls:.1f} calls, {100 * mgr_ms / host_ms:.2f} % of the "
+            f"host's), t_* " + json.dumps(
+                {k: v for k, v in st.items() if k.startswith("t_")}))
+
+    # (b) phase 4's engine: native False, True, True, False in turns
+    prompts = prompts_for(torch, 8, [128] * 8, cfg.vocab_size, 1, device)
+    engines = {}
+    for flag in (False, True):
+        eng = make_engine(params32, cfg, kv_dtype="int8", param_dtype="int8",
+                          num_pages=28, native_manager=flag, device=device)
+        acc = timed_managers(eng)
+        manager_run(torch, eng, acc, reqs(prompts, 20))          # warm
+        engines[flag] = (eng, acc)
+    streams, steps = {}, 0
+    reset_counts(pa)
+    for flag in (False, True, True, False):
+        eng, acc = engines[flag]
+        out, st, mgr_ms, calls = manager_run(torch, eng, acc,
+                                             reqs(prompts, 128))
+        steps += st["decode_steps"]
+        check(set(acc["kinds"]) == {"NativeBlockManager" if flag
+                                    else "BlockManager"},
+              f"(b) native_manager={flag} served on {set(acc['kinds'])}")
+        check(all(len(v) == 128 for v in out.values()),
+              "(b) not every request finished with 128 tokens")
+        streams.setdefault(flag, out)
+        check(out == streams[flag] == streams[False],
+              f"(b) native_manager={flag}: streams differ")
+        line("(b) headline", flag, st, mgr_ms, calls)
+    check(pa.LAUNCHES["paged_decode_attention_quant_parts"] == L * steps,
+          f"(b) {pa.LAUNCHES} launches, want L x {steps} decode steps of "
+          "the four runs")
+    del engines
+
+    # (c) phase 9's engine settings: ps 32, fp32, seed 1337, top-k 40,
+    # host sampling (every step a single-token step)
+    cprompts = prompts_for(torch, 8, [64] * 8, cfg.vocab_size, 6, device)
+    page = PageConfig(page_size=32, num_pages=128, max_seqs=8,
+                      pages_per_seq=32, kv_dtype="float32")
+    econf = EngineConfig(cache_mode="paged", page=page, max_batch=8,
+                         seed=1337, greedy=False, top_k=40)
+    cli_streams = {}
+    for flag in (False, True):
+        eng = InferenceEngine(params32, cfg, econf, device=device,
+                              native_manager=flag)
+        acc = timed_managers(eng)
+        out, st, mgr_ms, calls = manager_run(
+            torch, eng, acc, reqs(cprompts, 64), "single_steps",
+            sampler=Sampler(1337, top_k=40))
+        check(st["single_steps"] > 0 and all(len(v) == 64
+                                             for v in out.values()),
+              f"(c) native_manager={flag}: {st['single_steps']} single "
+              "steps, or a short stream")
+        cli_streams[flag] = out
+        line("(c) cli settings", flag, st, mgr_ms, calls, "single_steps",
+             ("t_step_dispatch_s", "t_materialize_s"))
+    check(cli_streams[True] == cli_streams[False],
+          "(c) native and python streams differ")
+
+    # (d) a pool small enough to preempt: phase 6's loaded queue
+    lens = [30, 200, 60, 150, 100, 250, 20, 180, 90, 220, 40, 130, 70, 240,
+            10, 160]
+    news = [100, 60, 120, 80, 40, 90, 110, 50, 70, 30, 120, 100, 60, 80,
+            120, 40]
+    qprompts = prompts_for(torch, 16, lens, cfg.vocab_size, 2, device)
+    qruns = {}
+    for flag in (False, True):
+        eng = make_engine(params32, cfg, kv_dtype="int8", param_dtype="int8",
+                          num_pages=10, native_manager=flag, device=device)
+        acc = timed_managers(eng)
+        out, st, mgr_ms, calls = manager_run(torch, eng, acc,
+                                             reqs(qprompts, news))
+        qruns[flag] = (out, st["preemptions"], st["peak_pages_used"])
+        line(f"(d) preempting queue (preemptions {st['preemptions']})", flag,
+             st, mgr_ms, calls)
+    check(qruns[True] == qruns[False] and qruns[True][1] > 0,
+          f"(d) streams/preemptions/peak pages differ or no preemption: "
+          f"{qruns[True][1:]} vs {qruns[False][1:]}")
+
+    # (e) phase 8's prefix caching, cold then adopting, on the native
+    # prefix manager against the Python one
+    sys_prompt = prompts_for(torch, 1, [256], cfg.vocab_size, 4, device)[0]
+    tails = prompts_for(torch, 8, [32] * 8, cfg.vocab_size, 5, device)
+    pprompts = [sys_prompt + t for t in tails]
+    prefix_keys = ("prefix_hit_tokens", "prefix_hit_pages",
+                   "prefix_pages_registered", "prefix_cached_pages",
+                   "suffix_prefills")
+    pruns = {}
+    for flag in (False, True):
+        eng = make_engine(params32, cfg, kv_dtype="int8", param_dtype="int8",
+                          num_pages=40, pps=4, prefix=True,
+                          native_manager=flag, device=device)
+        acc = timed_managers(eng)
+        pruns[flag] = []
+        for run in (1, 2):
+            out, st, mgr_ms, calls = manager_run(torch, eng, acc,
+                                                 reqs(pprompts, 64))
+            pruns[flag].append((out, {k: st[k] for k in prefix_keys}))
+            line(f"(e) prefix run {run} ({pruns[flag][-1][1]})", flag, st,
+                 mgr_ms, calls)
+        check(set(acc["kinds"]) == {"NativePrefixCachingBlockManager"
+                                    if flag else
+                                    "PrefixCachingBlockManager"},
+              f"(e) native_manager={flag} served on {set(acc['kinds'])}")
+    check(pruns[True] == pruns[False]
+          and pruns[True][1][1]["prefix_hit_pages"] == 16,
+          "(e) native prefix runs differ from the python ones, or run 2 "
+          "adopted no 16 pages")
+
+    # (f) the default (native_manager=None) builds native managers
+    made = []
+    real = native.make_block_manager
+
+    def spy(*a, **kw):
+        mgr = real(*a, **kw)
+        made.append(type(mgr).__name__)
+        return mgr
+
+    native.make_block_manager = spy
+    try:
+        serve(torch, params32, cfg, prompts=prompts, new=16, kv_dtype="int8",
+              param_dtype="int8", num_pages=28, device=device)
+        serve(torch, params32, cfg, prompts=pprompts, new=16,
+              kv_dtype="int8", param_dtype="int8", num_pages=40, pps=4,
+              prefix=True, device=device)
+    finally:
+        native.make_block_manager = real
+    check(made == ["NativeBlockManager", "NativePrefixCachingBlockManager"],
+          f"(f) the default engine built {made}")
+    log(f"  (f) native_manager=None built {made}")
+
+
 # ---- phase 11: the kernel lab ------------------------------------------------
 
 # timed calls a run of the lab's sweeps (their default is 50)
@@ -2191,9 +2477,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    # 2. build
+    # 2. build (the CUDA kernels, and the native block manager's host
+    # library beside them)
     t0 = time.monotonic()
+    host = threading.Thread(target=_build.build, args=("block_manager",),
+                            kwargs=dict(host=True))
+    host.start()
     _build.build_all(KERNELS)
+    host.join()
+    _build.load("block_manager", host=True)
     log(f"build: {time.monotonic() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in _build.BUILD_SECONDS.items())})")
 
@@ -2507,6 +2799,11 @@ def main() -> int:
           "int8/bf16 gates, the two CLIs")
     phase_training(torch, pa, params32, cfg, device)
 
+    # 16. the native block manager, host-timed, so also before any trace
+    phase("phase 16: the native block manager (csrc/block_manager.cpp) "
+          "against the Python one under the engine")
+    phase_native_manager(torch, pa, params32, cfg, device)
+
     # 11. the kernel lab (its main path: the sweeps), then its kernels
     # timed
     phase(f"phase 11: the kernel lab, {LAB_ITERS} timed calls a run")
@@ -2519,10 +2816,12 @@ def main() -> int:
           "suite at 124M, the GEMV and kernel suites at 1558M")
     phase_probe(pa)
     trace_grid(torch, pa, records)
-    cpu_ev, parts_ev, parts_n = profile_cli(torch, pa)
+    cpu_ev, parts_ev, parts_n, cli_trace = profile_cli(torch, pa)
     log(f"  cli --profile (tiny checkpoint, greedy, batch 2): trace.json "
         f"with {cpu_ev} CPU operator events and {parts_ev} parts kernel "
-        f"events for {parts_n} parts launches")
+        f"events for {parts_n} parts launches; read_trace: "
+        + trace_summary(cli_trace))
+    chunk_census(torch, cfg)
     phase("done")
     log(f"  {time.monotonic() - t_start:.1f} s in all")
 

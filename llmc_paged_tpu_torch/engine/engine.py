@@ -44,6 +44,11 @@ Continuous batching over the paged pool:
     admitted row adopts its longest cached prefix and only its suffix is
     prefilled (prefill_suffix_paged).
 
+Block managers: kv.native.make_block_manager builds the C++ twin
+(csrc/block_manager.cpp) when it builds, else the Python one;
+``native_manager`` True/False forces one (True raises when the library
+cannot be built).
+
 Serving: ``run(feed=..., on_tokens=...)`` is the long-lived loop of
 engine/server.ServingEngine (arrivals join at the next admission wave,
 streaming flushes, cancellation, a live stats snapshot).
@@ -68,11 +73,8 @@ import torch
 from llmc_paged_tpu_torch import not_ported, resolve_device
 from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config, PageConfig
 from llmc_paged_tpu_torch.engine.scheduler import Request, Scheduler, State
+from llmc_paged_tpu_torch.kv import native
 from llmc_paged_tpu_torch.kv.layouts import init_pool, to_device, token_coords
-from llmc_paged_tpu_torch.kv.manager import (
-    BlockManager,
-    PrefixCachingBlockManager,
-)
 from llmc_paged_tpu_torch.models import gpt2, gpt2_paged
 from llmc_paged_tpu_torch.ops.int8 import quantize_params
 from llmc_paged_tpu_torch.sampler import (
@@ -296,11 +298,14 @@ class InferenceEngine:
     """GPT-2 serving on one device: the card unless ``device`` says
     otherwise (``device=None`` raises when no GPU is present).
     ``use_kernel=False`` selects the plain PyTorch attention instead of the
-    CUDA kernels (the yardstick route)."""
+    CUDA kernels (the yardstick route). ``native_manager``: None takes
+    the native C++ block manager when it builds, else the Python one;
+    True or False forces one (True raises ImportError without it)."""
 
     def __init__(self, params, cfg: GPT2Config,
                  econf: Optional[EngineConfig] = None, device=None,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True,
+                 native_manager: Optional[bool] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.econf = econf = econf or EngineConfig()
@@ -334,6 +339,7 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.use_kernel = use_kernel
+        self.native_manager = native_manager
         self.stats: Dict[str, float] = {}
         # live snapshot for long-lived serving runs (self.stats is written
         # only when run() returns): rebuilt as a whole dict at every
@@ -560,8 +566,9 @@ class InferenceEngine:
             # same pool buffers, so a lost pool cache restarts it.
             mgr = self._prefix_mgr
             if mgr is None or self._pool_cache is None:
-                mgr = PrefixCachingBlockManager(page.num_pages,
-                                                page.page_size, max_seqs)
+                mgr = native.make_block_manager(
+                    page.num_pages, page.page_size, max_seqs,
+                    native=self.native_manager, prefix=True)
                 self._prefix_mgr = mgr
             else:
                 # sequences a previous run left behind: their full hashed
@@ -569,7 +576,9 @@ class InferenceEngine:
                 for pid in range(mgr.max_seqs):
                     mgr.free_prompt(pid)
         else:
-            mgr = BlockManager(page.num_pages, page.page_size, max_seqs)
+            mgr = native.make_block_manager(page.num_pages, page.page_size,
+                                            max_seqs,
+                                            native=self.native_manager)
         pool = self._pool_cache
         self._pool_cache = None
         if pool is None:

@@ -1,6 +1,8 @@
 """L3 host side: the KV block managers (copies of the Python
 ``BlockManager`` and ``PrefixCachingBlockManager`` of
-llmc_paged_tpu/kv/manager.py; the native C++ twin is not ported yet).
+llmc_paged_tpu/kv/manager.py). Their native C++ twins
+(csrc/block_manager.cpp, bound in kv/native.py) keep the same state
+machine; ``kv.native.make_block_manager`` picks one of the two.
 
 Page *data* lives in the device pool (kv/layouts.py); this manager hands
 out page indices and keeps the metadata state machine:
@@ -51,6 +53,22 @@ def _fill_tombstones(table: List[int], fill: int) -> List[int]:
     return out
 
 
+def format_state(mgr, prompt_id: int) -> str:
+    """The state_dump text of ``mgr`` (any manager with lru_epoch,
+    block_table and page_meta): the epoch, then one line a page of the
+    prompt's table."""
+    table = mgr.block_table(prompt_id)
+    lines = [f"Block manager llru {mgr.lru_epoch}",
+             f"Prompt {prompt_id} block count: {len(table)}"]
+    for pid in table:
+        if pid < 0:
+            lines.append("Block -1: reclaimed (slid out of window)")
+            continue
+        _, filled, lru = mgr.page_meta(pid)
+        lines.append(f"Block {pid}: filled {filled}, llru {lru}")
+    return "\n".join(lines)
+
+
 @dataclasses.dataclass(frozen=True)
 class Segment:
     """One contiguous device write: `count` new token rows into `page`
@@ -71,6 +89,11 @@ class BlockManager:
         self.lru_epoch = 0
 
     # -- queries ------------------------------------------------------------
+
+    def block_table(self, prompt_id: int) -> List[int]:
+        """Ordered page list for a prompt (collect_kv_blocks role); -1
+        marks a page reclaimed by release_below."""
+        return list(self.tables.get(prompt_id, []))
 
     def block_table_array(self, prompt_id: int, pages_per_seq: int,
                           fill: int = 0) -> np.ndarray:
@@ -99,6 +122,15 @@ class BlockManager:
 
     def num_free(self) -> int:
         return sum(1 for p in self.pages if not p.allocated)
+
+    def page_meta(self, page: int) -> Tuple[int, int, int]:
+        """(prompt_id, filled, lru_counter) of one page."""
+        pg = self.pages[page]
+        return pg.prompt_id, pg.filled, pg.lru_counter
+
+    def state_dump(self, prompt_id: int) -> str:
+        """print_state parity (block_manager.c:25-36) for debugging."""
+        return format_state(self, prompt_id)
 
     # -- mutation -----------------------------------------------------------
 

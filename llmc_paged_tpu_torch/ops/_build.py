@@ -1,10 +1,15 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C++ library.
 
 Each ``csrc/<name>.cu`` compiles with nvcc, at its first use, into a
 shared library with a plain C interface that ctypes loads:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/torch_kernels/lib<name>-<hash>.so
+
+Each ``csrc/<name>.cpp`` (host code: the native block manager) compiles
+the same way with the host compiler (``$CXX``, else ``g++`` on PATH):
+
+    g++ -O2 -fPIC -std=c++17 -shared -o build/torch_kernels/lib<name>-<hash>.so
 
 The library lands in ``build/torch_kernels/`` beside the package (the
 repository's ``build/`` is ignored by git) and is named by a hash of its
@@ -29,6 +34,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -46,37 +52,59 @@ def nvcc_path() -> str:
                        "build from source at first use")
 
 
-def library_path(name: str) -> str:
-    """Where the library of ``csrc/<name>.cu`` lives for its current
-    source, the ``csrc/*.cuh`` headers and the flags."""
+def cxx_path() -> str:
+    """The host C++ compiler: ``$CXX`` when set (and only it), else g++ on
+    PATH; raises if it is not there."""
+    cand = os.environ.get("CXX") or "g++"
+    path = shutil.which(cand)
+    if path is None:
+        raise RuntimeError(f"host C++ compiler {cand!r} not found (set CXX):"
+                           " the native block manager builds from source at "
+                           "first use")
+    return path
+
+
+def _source(name: str, host: bool) -> str:
+    return name + (".cpp" if host else ".cu")
+
+
+def library_path(name: str, host: bool = False) -> str:
+    """Where the library of ``csrc/<name>.cu`` (``host``: ``.cpp``) lives
+    for its current source, the ``csrc/*.cuh`` headers (CUDA sources
+    only) and the flags."""
     h = hashlib.sha256()
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for fn in [name + ".cu"] + headers:
+    headers = [] if host else sorted(f for f in os.listdir(CSRC)
+                                     if f.endswith(".cuh"))
+    for fn in [_source(name, host)] + headers:
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(CXX_FLAGS if host else NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library is current. Writes to
-    a temporary file and renames, so concurrent builds never load a
-    half-written library. Returns the library path."""
-    out = library_path(name)
+def build(name: str, host: bool = False) -> str:
+    """Compile ``csrc/<name>.cu`` (``host``: ``csrc/<name>.cpp`` with the
+    host compiler) unless its library is current. Writes to a temporary
+    file and renames, so concurrent builds (threads or processes) never
+    load a half-written library: the last rename wins, and every loader
+    finds a whole one. Returns the library path."""
+    out = library_path(name, host)
     if os.path.exists(out):
         BUILD_SECONDS.setdefault(name, 0.0)
         return out
+    compiler, flags = (cxx_path(), CXX_FLAGS) if host else (nvcc_path(),
+                                                           NVCC_FLAGS)
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.monotonic()
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC, name + ".cu")]
+    src = _source(name, host)
+    cmd = [compiler, *flags, "-o", tmp, os.path.join(CSRC, src)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+            raise RuntimeError(f"{os.path.basename(compiler)} failed for "
+                               f"{src}:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -107,12 +135,13 @@ def build_all(names: Sequence[str]) -> Dict[str, str]:
     return results
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def load(name: str, host: bool = False) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (``host``: ``.cpp``),
+    built on first use."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(build(name, host))
             _LIBS[name] = lib
         return lib
 

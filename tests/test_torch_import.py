@@ -26,7 +26,10 @@ def _port_modules():
 def test_import_leaves_jax_and_the_jax_package_out():
     """A fresh interpreter (the test process already imported jax)."""
     assert {"llmc_paged_tpu_torch.eval", "llmc_paged_tpu_torch.train",
-            "llmc_paged_tpu_torch.utils.dataloader"} <= set(_port_modules())
+            "llmc_paged_tpu_torch.utils.dataloader",
+            "llmc_paged_tpu_torch.kv.native",
+            "llmc_paged_tpu_torch.ops.dev.dump_chunk_trace"} <= set(
+                _port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}:\n"
@@ -44,13 +47,14 @@ def test_import_leaves_jax_and_the_jax_package_out():
 
 
 def test_no_source_names_jax_or_the_jax_package():
-    """Static scan of every port source and of chip_smoke.py."""
+    """Static scan of every port source (Python, CUDA and host C++) and
+    of chip_smoke.py."""
     pat = re.compile(r"^\s*(import|from)\s+jax\b|llmc_paged_tpu\.|"
                      r"^\s*(import|from)\s+llmc_paged_tpu\b(?!_torch)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
     assert len(files) > 10
     assert {os.path.join(PKG, "ops", "dev", n) for n in
             ("lab_full_pool.py", "probe_decode.py")} <= set(files)
@@ -60,6 +64,9 @@ def test_no_source_names_jax_or_the_jax_package():
             os.path.join(PKG, "csrc", "flash_attention.cu")} <= set(files)
     assert {os.path.join(PKG, "eval.py"), os.path.join(PKG, "train.py"),
             os.path.join(PKG, "utils", "dataloader.py")} <= set(files)
+    assert {os.path.join(PKG, "kv", "native.py"),
+            os.path.join(PKG, "ops", "dev", "dump_chunk_trace.py"),
+            os.path.join(PKG, "csrc", "block_manager.cpp")} <= set(files)
     hits = []
     for f in files:
         with open(f) as fh:
