@@ -83,8 +83,9 @@ Phases (any failed check raises, and the script exits non-zero):
      trace holds CPU operator events and the card's parts kernels),
      read by ops/dev/dump_chunk_trace.read_trace (busy ms, idle share,
      top kernels, longest gaps); last, ops/dev/dump_chunk_trace at the
-     JAX tool's defaults (124M, prompt 128, pool-mult 4, chunk 32, B 8)
-     in int8 and float32: the per-step and per-chunk census of operators
+     JAX tool's defaults but chunks of 16 (124M, prompt 128, pool-mult
+     4, B 8; the tool's 32 doubles the traces' time) in int8 and
+     float32: the per-step and per-chunk census of operators
      on a pool plane, parts kernels in the trace = L x steps, and the
      chunk trace's idle share (profiler sessions come last, so that no
      host-timed phase follows one).
@@ -140,7 +141,8 @@ Phases (any failed check raises, and the script exits non-zero):
      val < 3.2 and the int8 and bf16 val losses within 0.05 of fp32;
      (d) python -m llmc_paged_tpu_torch.train from scratch on the card
      (--val-every, --sample-every, --save), then python -m
-     llmc_paged_tpu_torch.eval on the saved checkpoint in three dtypes.
+     llmc_paged_tpu_torch.eval on the saved checkpoint in three dtypes,
+     the three processes at once.
  16. (run after phase 15, before phases 11 and 12) the native block
      manager (kv/native.py over csrc/block_manager.cpp) under the engine
      against the Python one, the managers' methods wrapped with a host
@@ -154,6 +156,40 @@ Phases (any failed check raises, and the script exits non-zero):
      cold and an adopting run: equal streams and prefix stats on the
      native prefix manager; (f) native_manager=None builds native
      managers (kv.native.make_block_manager wrapped).
+ 17. (run after phase 16, before phases 11 and 12) tensor and data
+     parallelism (llmc_paged_tpu_torch/parallel/): GPT-2 124M at full
+     width, weights drawn on the CPU from one seeded torch.Generator in
+     every process, served at phase 4's configuration (int8 weights and
+     KV, ps 128, bf16 activations, bf16 prefill copy, 8 x (128 + 128),
+     chunks of 16) by rank processes (parallel/mp_dryrun.RankPool; the
+     kernels built in phase 2 load in each rank). (a) two ranks sharing
+     the card over gloo (6 heads a rank); (b) where the machine has two
+     cards or more, min(4, cards) ranks over NCCL, a card each (on one
+     card it prints that it did not run). Each leg: the TP streams equal
+     a single-rank engine's in this process, or part only at a near-tie:
+     where the single-rank run's two top logits at that step lie within
+     max(1e-4, twice the two runs' logit noise), the noise being the
+     largest difference of their recorded top-two logits while their
+     contexts were the same, itself within 0.017 on the decode steps
+     and 0.032 on the prefill wave for the int8 headline (bf16 prefill
+     copy, bf16-rounded activations; about twice the largest seen) and
+     1e-4 at fp32 (margins and noise printed); p50_ttft_s, the prefill
+     wave's device ms (CUDA events around prefill_paged), and each
+     rank's weights on the card and peak allocated memory, beside one
+     rank's; likewise an fp32 run (TF32 off, 32 new
+     tokens), and fp32 spec_k=4 (4 repeated prompts) and prefix-cache
+     (phase 8's prompts, two runs) runs against plain TP greedy; parts
+     launches = L x decode steps on every rank, 2L + 1 all-reduces and
+     one all-gather a forward; every rank's int8 and f32 parts kernels
+     at its local heads against their plain versions (phase 3's
+     tolerance); the TP prefill's row-parallel product (a bf16 GEMM with
+     an f32 output) against the upcast product, timed; two DP AdamW
+     steps on a 4 x 64 batch within 1e-5 of one rank's (fp32); host ms
+     a decode step and tok/s for TP and one rank, and ms an all-reduce
+     and an all-gather at the step's shapes (over gloo they pass through
+     the host and say nothing of NCCL); each line beside the card's name
+     and power limit. ``--parallel-only`` runs
+     phases 1, 2 and 17 alone.
 Every kernel time is the lab harness's: CUDA events over launches queued
 behind a sleep kernel, the median of 3 runs.
 The line before the last is a JSON object {"kernels": [...]} (fifteen
@@ -605,22 +641,27 @@ def trace_summary(r) -> str:
             f"longest gaps: {gaps}")
 
 
+CENSUS_CHUNK = 16        # the JAX tool's default is 32
+
+
 def chunk_census(torch, cfg):
-    """ops/dev/dump_chunk_trace at the JAX tool's defaults (124M, prompt
-    128, pool-mult 4, chunk 32, B 8), int8 and float32, on the card: the
-    per-step and per-chunk table of pool operators, and the parts-kernel
-    launches in each trace = L x its steps. A split that is not whole is
-    logged with its raw counts, and a whole-plane copy on every step is
-    logged: both are findings, not failures."""
+    """ops/dev/dump_chunk_trace at the JAX tool's defaults but chunks of
+    CENSUS_CHUNK (124M, prompt 128, pool-mult 4, B 8), int8 and float32,
+    on the card: the per-step and per-chunk table of pool operators,
+    and the parts-kernel launches in each trace = L x its steps. A split
+    that is not whole is logged with its raw counts, and a whole-plane
+    copy on every step is logged: both are findings, not failures."""
     from llmc_paged_tpu_torch.ops.dev import dump_chunk_trace
     for dtype in ("int8", "float32"):
         lines, t0 = [], time.monotonic()
         rec = dump_chunk_trace.run(cfg, dtype, prompt=128, pool_mult=4,
-                                   chunk=32, batch=8, device="cuda",
-                                   report=lines.append, label="124m")
+                                   chunk=CENSUS_CHUNK, batch=8,
+                                   device="cuda", report=lines.append,
+                                   label="124m")
         for ln in lines:
             log("  " + ln)
-        want = {s: cfg.num_layers * s for s in (32, 64)}
+        want = {s: cfg.num_layers * s
+                for s in (CENSUS_CHUNK, 2 * CENSUS_CHUNK)}
         check(rec["parts_kernels"] == want,
               f"chunk trace {dtype}: parts kernels {rec['parts_kernels']} "
               f"in the traces, want L x steps {want}")
@@ -630,7 +671,7 @@ def chunk_census(torch, cfg):
             f"{'whole' if rec['integral'] else 'NOT whole (raw counts above)'}"
             "; whole-plane operators every step: "
             + (json.dumps({":".join(k): v["step"] for k, v in whole.items()})
-               if whole else "none") + "; trace (S=32): "
+               if whole else "none") + f"; trace (S={CENSUS_CHUNK}): "
             + trace_summary(rec["summary"]))
 
 
@@ -1850,6 +1891,517 @@ def phase_native_manager(torch, pa, params32, cfg, device):
     log(f"  (f) native_manager=None built {made}")
 
 
+# ---- phase 17: tensor and data parallelism -----------------------------------
+
+PAR_SEED = 17              # the weights every rank and the parent draw
+PAR_TASKS = "llmc_paged_tpu_torch.parallel.mp_dryrun:"
+NEAR_TIE = 1e-4            # the top-2 logit gap where two streams may part
+# the largest TP-vs-one-rank logit difference before a parting, on the
+# decode steps and on the prefill wave: fp32 sums in another order; for
+# the int8 headline, with its bf16 prefill copy and bf16-rounded
+# activations, about twice the largest seen on an H100 (decode 8.48e-3
+# over gloo, 7.06e-3 over NCCL; prefill 1.562e-2 on both)
+NOISE_CAP = {"float32": {"decode": 1e-4, "prefill": 1e-4},
+             "int8": {"decode": 0.017, "prefill": 0.032}}
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rank_kernels(heads):
+    """Rank target (imported by name in each rank process): this rank's
+    single- and multi-query parts kernels, int8 pool under bf16 q and f32
+    pool under f32 q, at the headline decode and spec-verify shapes with
+    ``heads`` heads, against their plain versions at phase 3's tolerance;
+    [(wrapper, [max |Δ| of acc, m, l], ok)]."""
+    import torch
+
+    from llmc_paged_tpu_torch.ops import paged_attention as pa
+    from llmc_paged_tpu_torch.parallel.mp_dryrun import rank_device
+    dev = rank_device()
+    out = []
+    for (kv, qd), (_, case) in ((pq, c) for pq in (("int8", "bf16"),
+                                                   ("f32", "f32"))
+                                for c in (SQ_CASES[0], MQ_CASES[0])):
+        q, pool, tables, lengths, starts = make_case(
+            torch, NH=heads, HS=64, kv=kv, qd=qd, seed=1700, device=dev,
+            **case)
+        got = run_parts(pa, q, pool, tables, lengths, starts)
+        ref = run_parts(pa, q, pool, tables, lengths, starts, plain=True)
+        sync(torch, dev)
+        errs, ok = max_err(torch, got, ref)
+        ok = ok and all(bool(torch.isfinite(t).all()) for t in got)
+        out.append((wrapper_name(q, pool), errs, ok))
+    return out
+
+
+def rank_collectives(rows, width, gather_width, iters=100):
+    """Rank target: host ms of one all-reduce of (rows, width) f32 and of
+    one all-gather of (rows, gather_width) f32 blocks over all ranks, on
+    this rank's device, each the mean of ``iters`` calls that end in a
+    synchronize (the TP decode step's shapes: the residual and the
+    vocab shard of the logits)."""
+    import torch
+    import torch.distributed as dist
+
+    from llmc_paged_tpu_torch.parallel.mp_dryrun import rank_device
+    dev = rank_device()
+    x = torch.ones(rows, width, device=dev)
+    block = torch.ones(rows, gather_width, device=dev)
+    buf = torch.empty(dist.get_world_size(), rows, gather_width, device=dev)
+
+    def timed(fn):
+        fn()
+        sync(torch, dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync(torch, dev)
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    return (timed(lambda: dist.all_reduce(x)),
+            timed(lambda: dist.all_gather(list(buf.unbind(0)), block)))
+
+
+def first_parting(a, b):
+    """[(rid, k)]: each row whose generated streams part, and the index of
+    the first generated token where they do."""
+    out = []
+    for rid in sorted(a):
+        ga, gb = a[rid], b[rid]
+        k = next((i for i, (x, y) in enumerate(zip(ga, gb)) if x != y), None)
+        if k is not None or len(ga) != len(gb):
+            out.append((rid, k if k is not None else min(len(ga), len(gb))))
+    return out
+
+
+def check_streams(what, got, want, top2, card, top2_got=None, cap=None):
+    """``got`` equals ``want`` (generated tokens by rid), or each row parts
+    only at a near-tie: the two top logits of the ``want`` run (``top2``:
+    one (B, 2) array a logits call, the prefill wave, then each chunk
+    step, every row in lockstep) within a bound at that step. The bound
+    is NEAR_TIE or, where both runs were recorded, twice their measured
+    logit noise if that is larger: the largest difference of the two
+    runs' top-1 and top-2 logits over the decode steps before each row
+    parts (the prefill's for a parting at the first token), where both
+    runs had the same context (sorted values move no more than the
+    logits do, and a pick can flip only where the gap is below twice
+    the logits' difference). The noise of each kind must stay within
+    ``cap`` ({"decode": x, "prefill": y}). Prints every parting, its gap
+    and the noise, then checks."""
+    parts = first_parting(got, want)
+    noise = {"decode": 0.0, "prefill": 0.0}
+    if top2_got is not None:
+        stop = dict(parts)
+        for rid in got:
+            k = stop.get(rid, min(len(top2), len(top2_got)))
+            for j, (a, b) in enumerate(zip(top2[:k], top2_got[:k])):
+                kind = "prefill" if j == 0 else "decode"
+                noise[kind] = max(noise[kind], float(abs(a[rid] - b[rid])
+                                                     .max()))
+    gaps = []
+    for rid, k in parts:
+        gap = float(top2[k][rid, 0] - top2[k][rid, 1])
+        bound = max(NEAR_TIE, 2 * noise["prefill" if k == 0 else "decode"])
+        gaps.append((rid, k, gap, bound))
+    log(f"  {what}: {len(got) - len(parts)}/{len(got)} streams identical"
+        + "".join(f"; row {rid} parts at generated token {k}, top-2 gap "
+                  f"{gap:.3e}" for rid, k, gap, _ in gaps)
+        + (f"; logit noise before parting: decode steps "
+           f"{noise['decode']:.3e}, prefill {noise['prefill']:.3e}"
+           if top2_got is not None else "")
+        + f" [{card}]")
+    if top2_got is not None:
+        for kind, v in noise.items():
+            check(v <= cap[kind],
+                  f"{what}: the runs' {kind} logits differ by {v:.3e} > "
+                  f"{cap[kind]:g} where their contexts are the same")
+    for rid, k, gap, bound in gaps:
+        check(gap <= bound,
+              f"{what}: row {rid} parts at generated token {k} where the "
+              f"top-2 logit gap is {gap:.3e} > {bound:.3e}")
+
+
+def generated(streams, reqs):
+    return {r["rid"]: streams[r["rid"]][len(r["prompt"]):] for r in reqs}
+
+
+def single_run(torch, params, cfg, reqs, device, record=False, **kw):
+    """The parent's single-rank engine on ``device`` over ``reqs``: (the
+    engine, its generated streams, top-2 records of a recorded run)."""
+    from llmc_paged_tpu_torch.engine.scheduler import Request
+    from llmc_paged_tpu_torch.parallel.mp_dryrun import TopTwo
+    eng = make_engine(params, cfg, device=device, **kw)
+    top2 = None
+    if record:
+        top2 = eng._model = TopTwo(eng._model)
+    done = eng.run([Request(**r) for r in reqs])
+    sync(torch, device)
+    return eng, {r.rid: list(r.generated) for r in done}, (
+        top2.calls if top2 else None)
+
+
+def prefill_wave_ms(torch, eng, reqs, reps=3):
+    """Device ms of the prefill wave of ``reqs`` on ``eng`` (CUDA events
+    around gpt2_paged.prefill_paged; the requests cut to one new token),
+    the median of ``reps`` runs after a warm one."""
+    from llmc_paged_tpu_torch.engine.scheduler import Request
+    from llmc_paged_tpu_torch.models import gpt2_paged
+
+    def run():
+        eng.run([Request(**dict(r, max_new_tokens=1)) for r in reqs])
+    run()
+    with counting_calls(torch, gpt2_paged, "prefill_paged") as calls:
+        for _ in range(reps):
+            run()
+    ms = device_ms_of(torch, calls[1])
+    check(len(ms) == reps, f"prefill waves: {len(ms)} in {reps} runs")
+    return sorted(ms)[reps // 2]
+
+
+def rank_prefill_ms(seed, cfg, econf, reqs):
+    """Rank target: ``prefill_wave_ms`` of an engine on this rank's card,
+    on the weights drawn from ``seed`` on the CPU."""
+    import torch
+
+    from llmc_paged_tpu_torch.engine.engine import InferenceEngine
+    from llmc_paged_tpu_torch.models import gpt2
+    from llmc_paged_tpu_torch.parallel.mp_dryrun import rank_device
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(seed),
+                              device="cpu")
+    eng = InferenceEngine(params, cfg, econf, device=rank_device())
+    return prefill_wave_ms(torch, eng, reqs)
+
+
+def host_ms_step(st):
+    return 1e3 * (st["t_chain_dispatch_s"] + st["t_materialize_s"]) \
+        / max(1, st["decode_steps"])
+
+
+def par_requests(prompts, new):
+    return [dict(rid=i, prompt=list(p), max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+
+
+def par_econf(kv_dtype, param_dtype, num_pages, pps=3, mesh=None, **kw):
+    """phase 4's EngineConfig (make_engine's) with ``mesh_shape``."""
+    from llmc_paged_tpu_torch.config import EngineConfig, PageConfig
+    quant = param_dtype == "int8"
+    return EngineConfig(
+        cache_mode="paged", page=PageConfig(
+            page_size=128, num_pages=num_pages, max_seqs=8,
+            pages_per_seq=pps, kv_dtype=kv_dtype,
+            prefix_cache=kw.pop("prefix", False)),
+        max_batch=8, greedy=True, decode_chunk=16, param_dtype=param_dtype,
+        activation_dtype="bfloat16" if quant else "float32",
+        prefill_param_dtype="bfloat16" if quant else None, spec_ngram=3,
+        mesh_shape=mesh, **kw)
+
+
+def phase_parallel(torch, pa, card):
+    """Phase 17 (module docstring): the single-rank references in this
+    process on the card, then leg (a), two ranks sharing the card over
+    gloo, and leg (b), NCCL over min(4, cards) cards where there are two
+    or more."""
+    import numpy as np
+
+    from llmc_paged_tpu_torch.config import GPT2Config
+    from llmc_paged_tpu_torch.engine.scheduler import Request
+    from llmc_paged_tpu_torch.models import gpt2
+    from llmc_paged_tpu_torch.parallel.mp_dryrun import TopTwo, weight_bytes
+    device = "cuda"
+    cfg = GPT2Config.gpt2_124m()
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(PAR_SEED),
+                              device="cpu")
+    prompts = prompts_for(torch, 8, [128] * 8, cfg.vocab_size, 1, device)
+    segs = prompts_for(torch, 4, [32] * 4, cfg.vocab_size, 3, device)
+    sys_prompt = prompts_for(torch, 1, [256], cfg.vocab_size, 4, device)[0]
+    tails = prompts_for(torch, 8, [32] * 8, cfg.vocab_size, 5, device)
+    runs = {
+        # name: (requests, engine keywords)
+        "int8": (par_requests(prompts, 128),
+                 dict(kv_dtype="int8", param_dtype="int8", num_pages=28)),
+        "fp32": (par_requests(prompts, 32),
+                 dict(kv_dtype="float32", param_dtype="float32",
+                      num_pages=28)),
+        # fp32, so that the spec and prefix paths part from plain greedy
+        # only by sums in another order
+        "spec-plain": (par_requests([s * 4 for s in segs], 32),
+                       dict(kv_dtype="float32", param_dtype="float32",
+                            num_pages=28)),
+        "prefix-plain": (par_requests([sys_prompt + t for t in tails], 32),
+                         dict(kv_dtype="float32", param_dtype="float32",
+                              num_pages=40, pps=4)),
+    }
+    # the single-rank references (a timed int8 run after a warm one, and a
+    # recorded run of each configuration)
+    t0 = time.monotonic()
+    ref = {}
+    reqs, kw = runs["int8"]
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng, gen, _ = single_run(torch, params, cfg, reqs, device, **kw)
+    # the timed run records its logits' top two, as the TP run does (a
+    # device->host copy a step)
+    top2 = eng._model = TopTwo(eng._model)
+    done = eng.run([Request(**r) for r in reqs])
+    sync(torch, device)
+    single_st = dict(eng.stats)
+    single_st["weight_bytes"] = weight_bytes(eng)
+    single_st["peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    ref["int8"] = ({r.rid: list(r.generated) for r in done}, top2.calls)
+    eng._model = top2.inner
+    single_st["prefill_ms"] = prefill_wave_ms(torch, eng, reqs)
+    del eng
+    for name, (reqs, kw) in runs.items():
+        if name != "int8":
+            ref[name] = single_run(torch, params, cfg, reqs, device,
+                                   record=True, **kw)[1:]
+    check(ref["int8"][0] == gen, "single rank: a second run parted from "
+          "the first (the engine is not deterministic)")
+    log(f"  single rank ({device}): int8 decode_tok_per_s "
+        f"{single_st['decode_tok_per_s']:.1f}, {host_ms_step(single_st):.2f} "
+        f"host ms a decode step ({single_st['decode_steps']} steps), "
+        f"p50_ttft_s {single_st['p50_ttft_s']:.4f} (the prefill wave and "
+        f"the first chunk), a prefill wave {single_st['prefill_ms']:.2f} "
+        f"device ms; weights "
+        f"{mib(single_st['weight_bytes'])} MiB on the card, peak "
+        f"{mib(single_st['peak_bytes'])} MiB above what the process held; "
+        f"references {time.monotonic() - t0:.1f} s [{card}]")
+    # the DP reference: two AdamW steps on the whole batch, fp32
+    rng = np.random.default_rng(PAR_SEED)
+    x = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int64)
+    y = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int64)
+    leaves = {k: v.requires_grad_(True) for k, v in
+              gpt2.to_device(params, cfg, device=device).items()}
+    opt = torch.optim.AdamW(leaves.values(), lr=1e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.0)
+    dp_want = []
+    for _ in range(2):
+        opt.zero_grad(set_to_none=True)
+        loss = gpt2.loss_fn(leaves, x, y, cfg)
+        loss.backward()
+        opt.step()
+        dp_want.append(float(loss.detach()))
+    del leaves, opt
+
+    n_cards = torch.cuda.device_count()
+    legs = [("a", 2, "gloo", "cuda:0")]
+    if n_cards >= 2:
+        legs.append(("b", min(4, n_cards), "nccl", "cuda"))
+    else:
+        log(f"  (b) NCCL across cards: not run ({n_cards} card; NCCL takes "
+            f"one rank a card) [{card}]")
+    for n in sorted({n for _, n, _, _ in legs}):
+        local_head_times(torch, pa, cfg.num_heads // n, device, card)
+        row_parallel_product(torch, cfg, n, card)
+    for leg, n, backend, dev in legs:
+        parallel_leg(torch, cfg, runs, ref, single_st, dp_want, (x, y), leg,
+                     n, backend, dev, card)
+
+
+def local_head_times(torch, pa, heads, device, card):
+    """The parts kernels at a TP rank's head count: the headline decode
+    shape (int8 pool under bf16 q, f32 under f32) and the spec-verify
+    shape, each beside its plain version and its bound (phase 3's
+    timer and cost model)."""
+    for (kv, qd), (name, case) in ((pq, c) for pq in (("int8", "bf16"),
+                                                      ("f32", "f32"))
+                                   for c in (SQ_CASES[0], MQ_CASES[0])):
+        args = make_case(torch, NH=heads, HS=64, kv=kv, qd=qd, seed=1701,
+                         device=device, **case)
+        t = time_case(torch, pa, *args)
+        log(f"  parts kernel at {heads} heads, {kv}/q{qd} {name} "
+            f"(B=8, NH={heads}, HS=64): kernel {t['ms'] * 1e3:.2f} us, "
+            f"plain {t['plain_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} [{card}]")
+
+
+def row_parallel_product(torch, cfg, ranks, card):
+    """The TP prefill's row-parallel product (fcproj, the bf16 prefill
+    copy, 8 x 128 rows) on the card: sharding._f32_product, a bf16 GEMM
+    with an f32 output, against the f32 product of the upcast operands
+    (phase 3's tolerance), timed beside that upcast route and beside one
+    device's bf16 linear of the whole width (device ms, the lab timer)."""
+    from llmc_paged_tpu_torch.ops import layers
+    from llmc_paged_tpu_torch.parallel.sharding import _f32_product
+    g = torch.Generator(device="cuda").manual_seed(1702)
+    C, rows = cfg.channels, 8 * 128
+    x = torch.randn(rows, 4 * C, device="cuda", generator=g).bfloat16()
+    w = (0.02 * torch.randn(C, 4 * C, device="cuda", generator=g)).bfloat16()
+    xs, ws = x[:, : 4 * C // ranks], w[:, : 4 * C // ranks].contiguous()
+    got = _f32_product(xs, ws)
+    ref = torch.matmul(xs.float(), ws.t().float())
+    err = float((got - ref).abs().max())
+    check(bool(((got - ref).abs() <= TOL_ABS + TOL_REL * ref.abs()).all()),
+          f"row-parallel product: bf16 GEMM with f32 output vs the upcast "
+          f"product: max|d| {err:.3e}")
+    ms = device_ms(lambda: _f32_product(xs, ws))
+    up = device_ms(lambda: torch.matmul(xs.float(), ws.t().float()))
+    one = device_ms(lambda: layers.linear(x, w))
+    log(f"  row-parallel fcproj product at {ranks} ranks ({rows}, "
+        f"{4 * C // ranks}) x ({C}, {4 * C // ranks}) bf16: f32 output "
+        f"{ms * 1e3:.2f} us (max|d| {err:.3e} from the upcast product, "
+        f"{up * 1e3:.2f} us); one device's bf16 linear ({rows}, {4 * C}) "
+        f"{one * 1e3:.2f} us [{card}]")
+
+
+def mib(n):
+    return f"{n / 2**20:.1f}"
+
+
+def parallel_leg(torch, cfg, runs, ref, single_st, dp_want, xy, leg, n,
+                 backend, dev, card):
+    """One leg of phase 17: ``n`` rank processes over ``backend``, each on
+    ``dev`` ("cuda:0": all on one card; "cuda": a card a rank)."""
+    from llmc_paged_tpu_torch.parallel.mp_dryrun import RankPool
+    L = cfg.num_layers
+    heads = cfg.num_heads // n
+    what = (f"({leg}) {n} ranks over {backend}"
+            + (" sharing one card" if dev == "cuda:0" else ", a card each"))
+    t0 = time.monotonic()
+    with RankPool(n, backend, dev, timeout_s=600) as pool:
+        pool.run(PAR_TASKS + "rank_device")       # every rank has joined
+        t_start = time.monotonic() - t0
+        mesh = {"model": n}
+        # the int8 headline: a short warm run, then a timed run that
+        # records its logits' top two
+        reqs, kw = runs["int8"]
+        res = pool.run(PAR_TASKS + "engine_run", PAR_SEED, cfg,
+                       par_econf(mesh=mesh, **kw), reqs, record=True,
+                       warm_new=20)
+        for r in res[1:]:
+            check([x["streams"] for x in r] == [x["streams"]
+                                                for x in res[0]],
+                  f"{what}: ranks' streams differ")
+        timed = rec = res[0][0]
+        st = timed["stats"]
+        check(all(len(g) == 128 for g in generated(timed["streams"], reqs)
+                  .values()), f"{what}: not every row made 128 tokens")
+        check_streams(f"{what}: int8 TP vs single-rank streams",
+                      generated(timed["streams"], reqs), ref["int8"][0],
+                      ref["int8"][1], card, rec["top2"], NOISE_CAP["int8"])
+        launches = [r[0]["launches"] for r in res]
+        want = L * st["decode_steps"]
+        check(all(lc["paged_decode_attention_quant_parts"] == want
+                  for lc in launches),
+              f"{what}: int8 parts launches {launches}, want L x "
+              f"{st['decode_steps']} on every rank")
+        coll = timed["collectives"]
+        forwards = coll["all_gather"]
+        check(coll["all_reduce"] == (2 * L + 1) * forwards,
+              f"{what}: collectives {coll}, want 2L + 1 all-reduces a "
+              f"forward ({forwards} forwards)")
+        log(f"  {what}: int8 TP decode_tok_per_s "
+            f"{st['decode_tok_per_s']:.1f} (single rank "
+            f"{single_st['decode_tok_per_s']:.1f}), "
+            f"{host_ms_step(st):.2f} host ms a decode step (single "
+            f"{host_ms_step(single_st):.2f}); p50_ttft_s "
+            f"{st['p50_ttft_s']:.4f} (single {single_st['p50_ttft_s']:.4f}); "
+            f"{2 * L + 1} all-reduces and 1 "
+            f"all-gather a step ({coll['all_reduce']} and {forwards} in "
+            f"{forwards} forwards); launches on rank 0 "
+            f"{ {k: v for k, v in launches[0].items() if v} } at {heads} "
+            f"heads a rank [{card}]")
+        log(f"  {what}: int8 weights on the card a rank (MiB): "
+            + ", ".join(mib(r[0]["weight_bytes"]) for r in res)
+            + f" (single rank {mib(single_st['weight_bytes'])}); peak "
+            "allocated a rank process (MiB): "
+            + ", ".join(mib(r[0]["peak_bytes"]) for r in res)
+            + f" (single rank {mib(single_st['peak_bytes'])} above what its "
+            f"process held) [{card}]")
+        waves = pool.run("chip_smoke:rank_prefill_ms", PAR_SEED, cfg,
+                         par_econf(mesh=mesh, **kw), reqs)
+        log(f"  {what}: the int8 prefill wave of 8 x 128 (bf16 prefill "
+            f"copy), device ms (CUDA events around prefill_paged, median "
+            f"of 3) a rank: " + ", ".join(f"{w:.2f}" for w in waves)
+            + f" (single rank {single_st['prefill_ms']:.2f}) [{card}]")
+        # fp32 parity, TF32 off
+        reqs, kw = runs["fp32"]
+        res = pool.run(PAR_TASKS + "engine_run", PAR_SEED, cfg,
+                       par_econf(mesh=mesh, **kw), reqs, record=True)
+        r0 = res[0][0]
+        check(all(r[0]["streams"] == r0["streams"] for r in res),
+              f"{what}: fp32 ranks' streams differ")
+        check_streams(f"{what}: fp32 TP vs single-rank streams",
+                      generated(r0["streams"], reqs), ref["fp32"][0],
+                      ref["fp32"][1], card, r0["top2"],
+                      NOISE_CAP["float32"])
+        check(r0["launches"]["paged_decode_attention_parts"]
+              == L * r0["stats"]["decode_steps"],
+              f"{what}: fp32 parts launches {r0['launches']}")
+        log(f"  {what}: fp32 run: decode_tok_per_s "
+            f"{r0['stats']['decode_tok_per_s']:.1f}, decode steps "
+            f"{r0['stats']['decode_steps']}, launches on rank 0 "
+            f"{ {k: v for k, v in r0['launches'].items() if v} } [{card}]")
+        # spec_k=4 and prefix caching against TP plain greedy
+        for name, extra, runs_n in (("spec-plain", dict(spec_k=4), 1),
+                                    ("prefix-plain", dict(prefix=True), 2)):
+            reqs, kw = runs[name]
+            plain = pool.run(PAR_TASKS + "engine_run", PAR_SEED, cfg,
+                             par_econf(mesh=mesh, **kw), reqs,
+                             record=True)[0][0]
+            opt = pool.run(PAR_TASKS + "engine_run", PAR_SEED, cfg,
+                           par_econf(mesh=mesh, **kw, **extra), reqs,
+                           runs=runs_n)[0][-1]
+            label = name.split("-")[0]
+            check_streams(f"{what}: {label} TP vs plain TP streams",
+                          generated(opt["streams"], reqs),
+                          generated(plain["streams"], reqs), plain["top2"],
+                          card)
+            check_streams(f"{what}: plain TP vs single-rank streams "
+                          f"({label} prompts)",
+                          generated(plain["streams"], reqs), ref[name][0],
+                          ref[name][1], card, plain["top2"],
+                          NOISE_CAP["float32"])
+            ost = opt["stats"]
+            mq = opt["launches"]["paged_decode_attention_parts_mq"]
+            if label == "spec":
+                check(ost["verify_steps"] > 0
+                      and mq == L * ost["verify_steps"],
+                      f"{what}: spec mq launches {mq}, verify steps "
+                      f"{ost['verify_steps']}")
+            else:
+                check(ost["prefix_hit_pages"] == 16
+                      and mq == L * ost["suffix_prefills"],
+                      f"{what}: prefix run 2 hit pages "
+                      f"{ost['prefix_hit_pages']}, mq launches {mq}, "
+                      f"suffix prefills {ost['suffix_prefills']}")
+            log(f"  {what}: {label} run: decode_tok_per_s "
+                f"{ost['decode_tok_per_s']:.1f}, verify steps "
+                f"{ost['verify_steps']}, suffix prefills "
+                f"{ost['suffix_prefills']}, mq launches {mq} [{card}]")
+        # each rank's parts kernels at its local heads
+        for rank, checks in enumerate(pool.run("chip_smoke:rank_kernels",
+                                               heads)):
+            for wrapper, errs, ok in checks:
+                check(ok, f"{what}: rank {rank} {wrapper} at {heads} heads "
+                          f"disagrees with its plain version: {errs}")
+        log(f"  {what}: every rank's int8 and f32 single- and multi-query "
+            f"parts kernels at {heads} heads match their plain versions "
+            f"(tol {TOL_ABS:g} + {TOL_REL:g}*|ref|) [{card}]")
+        # one DP AdamW step (and a second) against one rank, fp32
+        losses = pool.run(PAR_TASKS + "dp_losses", PAR_SEED, cfg, *xy,
+                          steps=2)
+        for rank, got in enumerate(losses):
+            d = max(abs(a - b) for a, b in zip(got, dp_want))
+            check(d <= 1e-5, f"{what}: rank {rank} DP losses {got} vs one "
+                             f"rank {dp_want}: |d| {d:.3e} > 1e-5")
+        log(f"  {what}: DP AdamW on a 4 x 64 batch, losses {losses[0]} vs "
+            f"one rank {dp_want} (|d| <= 1e-5) [{card}]")
+        ar, ag = pool.run("chip_smoke:rank_collectives", 8, cfg.channels,
+                          cfg.padded_vocab_size // n)[0]
+        log(f"  {what}: {ar:.3f} ms an all-reduce of (8, {cfg.channels}) "
+            f"f32, {ag:.3f} ms an all-gather of (8, "
+            f"{cfg.padded_vocab_size // n}) f32 blocks (host clock, "
+            f"synchronized; {backend}"
+            + (": through the host, not NCCL's" if backend == "gloo" else "")
+            + f"); rank start {t_start:.1f} s [{card}]")
+
+
 # ---- phase 11: the kernel lab ------------------------------------------------
 
 # timed calls a run of the lab's sweeps (their default is 50)
@@ -2134,8 +2686,7 @@ def log_lab_floor_and_clusters(torch, device):
 
 # ---- phase 12: the decode-step probe ------------------------------------------
 
-PROBE_RUNS = (["--model", "124m",
-               "--prefill-lengths", "128,256,896,1024"],
+PROBE_RUNS = (["--model", "124m", "--prefill-lengths", "128,256,896,1024"],
               ["--model", "1558m", "--skip",
                "matmul,prefill,attention,chunk,unrolled"])
 
@@ -2384,39 +2935,53 @@ def train_docs(torch, tmp, device):
     return paths
 
 
-def run_entry_point(argv, want):
-    """``python -m`` an entry point of the port with LLMC_PLATFORM unset
-    (so it runs on the card); it must exit 0 and print ``want``."""
+def run_entry_points(jobs):
+    """``python -m`` entry points of the port with LLMC_PLATFORM unset
+    (so they run on the card), all at once: ``jobs`` is [(argv, want)];
+    each must exit 0 and print its ``want``. Returns each one's stdout
+    lines."""
     env = {k: v for k, v in os.environ.items() if k != "LLMC_PLATFORM"}
     env["PYTHONPATH"] = HERE
     t0 = time.monotonic()
-    out = subprocess.run([sys.executable, "-m"] + argv, cwd=HERE, env=env,
-                         capture_output=True, text=True, timeout=300)
-    check(out.returncode == 0 and want in out.stdout,
-          f"{argv[0]} exited {out.returncode}: {out.stderr[-2000:]}")
-    lines = out.stdout.strip().splitlines()
-    log(f"  (d) python -m {argv[0]} ({time.monotonic() - t0:.1f} s): "
-        f"{lines[-1]}")
-    return lines
+    procs = [subprocess.Popen([sys.executable, "-m"] + argv, cwd=HERE,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv, _ in jobs]
+    out = []
+    try:
+        for p, (argv, want) in zip(procs, jobs):
+            stdout, stderr = p.communicate(timeout=300)
+            check(p.returncode == 0 and want in stdout,
+                  f"{argv[0]} exited {p.returncode}: {stderr[-2000:]}")
+            lines = stdout.strip().splitlines()
+            log(f"  (d) python -m {argv[0]} ({time.monotonic() - t0:.1f} "
+                f"s): {lines[-1]}")
+            out.append(lines)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
 
 
 def entry_points(tmp, paths):
     """(d) The train CLI from scratch on the card, with --val-every,
     --sample-every and --save, then the eval CLI on the saved checkpoint
-    in the three dtypes."""
+    in the three dtypes, at once."""
     from llmc_paged_tpu_torch import formats
     from llmc_paged_tpu_torch.tokenizer import byte_fallback_table
     tok = os.path.join(tmp, "docs_tokenizer.bin")
     formats.write_tokenizer_bin(tok, byte_fallback_table(DOCS_CFG[
         "vocab_size"]))
     save = os.path.join(tmp, "trained.bin")
-    lines = run_entry_point(
+    [lines] = run_entry_points([(
         ["llmc_paged_tpu_torch.train", "--train-data", paths["train"],
          "--val-data", paths["val"], "--tokenizer", tok, "--steps", "6",
          "--batch", "8", "--seq-len", "128", "--layers", "2", "--heads",
          "4", "--channels", "128", "--vocab", "257", "--max-seq-len", "128",
          "--lr", "1e-3", "--val-every", "3", "--sample-every", "5", "--save",
-         save], "saved ")
+         save], "saved ")])
     check(sum(": val loss " in s for s in lines) == 2
           and sum(": train loss " in s for s in lines) == 6
           and any(" sample: " in s for s in lines),
@@ -2424,11 +2989,11 @@ def entry_points(tmp, paths):
     for s in lines:
         if ": val loss " in s or " sample: " in s:
             log(f"      {s}")
-    for dt in ("float32", "bfloat16", "int8"):
-        run_entry_point(["llmc_paged_tpu_torch.eval", "--checkpoint", save,
-                         "--data", paths["val"], "--dtype", dt, "--batch",
-                         "8", "--seq-len", "128", "--batches", "4"],
-                        f"dtype={dt} val loss ")
+    run_entry_points([(["llmc_paged_tpu_torch.eval", "--checkpoint", save,
+                        "--data", paths["val"], "--dtype", dt, "--batch",
+                        "8", "--seq-len", "128", "--batches", "4"],
+                       f"dtype={dt} val loss ")
+                      for dt in ("float32", "bfloat16", "int8")])
 
 
 def phase_training(torch, pa, params32, cfg, device):
@@ -2451,7 +3016,14 @@ def phase_training(torch, pa, params32, cfg, device):
         entry_points(tmp, paths)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="smoke run of the torch port "
+                                             "on the card (module docstring)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="phases 1, 2 and 17 alone (e.g. on four cards, "
+                         "where phase 17 adds its NCCL leg)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2472,7 +3044,8 @@ def main() -> int:
                          text=True, timeout=60)
     log(f"device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    log(smi.stdout.strip().splitlines()[0])     # name, power limit
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)                                   # name, power limit
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -2488,6 +3061,15 @@ def main() -> int:
     _build.load("block_manager", host=True)
     log(f"build: {time.monotonic() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in _build.BUILD_SECONDS.items())})")
+    if args.parallel_only:
+        phase("phase 17: tensor and data parallelism (parallel/), GPT-2 124M "
+              "at full width over rank processes")
+        phase_parallel(torch, pa, card)
+        phase("done")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. kernel vs plain
     phase(f"phase 3: kernels vs plain versions (tol {TOL_ABS:g} + "
@@ -2803,6 +3385,11 @@ def main() -> int:
     phase("phase 16: the native block manager (csrc/block_manager.cpp) "
           "against the Python one under the engine")
     phase_native_manager(torch, pa, params32, cfg, device)
+
+    # 17. tensor and data parallelism, host-timed, so also before any trace
+    phase("phase 17: tensor and data parallelism (parallel/), GPT-2 124M at "
+          "full width over rank processes")
+    phase_parallel(torch, pa, card)
 
     # 11. the kernel lab (its main path: the sweeps), then its kernels
     # timed

@@ -45,10 +45,10 @@ def platform_device():
 # The ROADMAP.md heading and bold item that the "not ported yet" errors
 # name; both must appear there verbatim.
 ROADMAP_HEADING = "Modules still to port"
-PARALLELISM = "Tensor and data parallelism"
+TP_SERVING = "The serving front over tensor-parallel ranks"
 
 
-def not_ported(what: str, item: str = PARALLELISM) -> NotImplementedError:
+def not_ported(what: str, item: str) -> NotImplementedError:
     """The error for an option that is not in the port yet, naming the
     ROADMAP item that would serve it."""
     return NotImplementedError(

@@ -2,9 +2,9 @@
 GPT2Config, PageConfig and EngineConfig (same fields, same defaults), so
 that one EngineConfig describes the same deployment in both packages.
 
-``mesh_shape`` (tensor parallelism) is not in the port yet: it is kept
-so configurations carry over, and the port's engine raises
-NotImplementedError when it is set.
+``mesh_shape`` (tensor parallelism, ``{"model": m}`` or ``{"data": d,
+"model": m}``) runs the engine in each rank of a torch.distributed
+group of d·m ranks (``parallel/sharding.py``).
 """
 
 from __future__ import annotations

@@ -17,8 +17,16 @@ Serving over HTTP instead (concurrent connections batch continuously):
 It runs on the card. ``LLMC_PLATFORM=cpu`` selects the CPU (the plain
 PyTorch versions of the kernels); any other value raises. ``--profile
 DIR`` writes a torch.profiler Chrome trace of the run to
-DIR/trace.json. ``--mesh-model`` (tensor parallelism) is not in the port
-yet: it exits with an error naming its ROADMAP item.
+DIR/trace.json.
+
+Tensor parallelism over N ranks (``--mesh-model N``): one process a rank
+under torchrun, each on its card (``cuda:LOCAL_RANK``, NCCL) or, with
+``LLMC_PLATFORM=cpu``, on the CPU (gloo); every rank runs the same
+schedule and only rank 0 prints:
+    torchrun --nproc-per-node 2 -m llmc_paged_tpu_torch.engine.cli \
+        --checkpoint model.bin --data tokens.bin --batch 8 --mesh-model 2
+A plain start with N > 1 exits naming that command; ``--serve`` over TP
+ranks is not in the port yet (ServingEngine raises).
 """
 
 from __future__ import annotations
@@ -28,20 +36,13 @@ import json
 import os
 import time
 
-from llmc_paged_tpu_torch import (
-    PARALLELISM,
-    formats,
-    not_ported,
-    platform_device,
-)
+from llmc_paged_tpu_torch import formats, platform_device
 from llmc_paged_tpu_torch.config import EngineConfig, PageConfig
 from llmc_paged_tpu_torch.engine.engine import InferenceEngine
 from llmc_paged_tpu_torch.engine.scheduler import Request
+from llmc_paged_tpu_torch.parallel.sharding import join_ranks
 from llmc_paged_tpu_torch.sampler import Sampler
 from llmc_paged_tpu_torch.tokenizer import Tokenizer
-
-# flag -> the ROADMAP item that would serve it
-LATER_FLAGS = {"mesh_model": PARALLELISM}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -116,7 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "non-greedy serving; not bit-parity with the C "
                         "xorshift sampler)")
     p.add_argument("--mesh-model", type=int, default=0,
-                   help="tensor-parallel ways (not in the port yet)")
+                   help="tensor-parallel ways over heads (0 = off): one "
+                        "process a rank under torchrun")
     p.add_argument("--no-kernel", action="store_true",
                    help="plain PyTorch attention instead of the CUDA "
                         "kernels")
@@ -158,11 +160,10 @@ def stop_profile(prof, out_dir: str) -> str:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, item in LATER_FLAGS.items():
-        if getattr(args, flag):
-            parser.error(str(not_ported(f"--{flag.replace('_', '-')}",
-                                        item)))
     device = platform_device()
+    rank = (join_ranks(parser, "--mesh-model", args.mesh_model, device,
+                       "llmc_paged_tpu_torch.engine.cli")
+            if args.mesh_model else 0)
     cfg, params = formats.read_checkpoint(args.checkpoint)
     tok = Tokenizer.from_file(args.tokenizer) if args.tokenizer else None
     stream = formats.read_token_stream(args.data)
@@ -182,7 +183,9 @@ def main(argv=None) -> int:
                          spec_k=args.spec_k, spec_ngram=args.spec_ngram,
                          stop_tokens=tuple(args.stop_token),
                          serve_logprobs=not args.no_logprobs,
-                         log_every=args.log_every)
+                         log_every=args.log_every,
+                         mesh_shape={"model": args.mesh_model}
+                         if args.mesh_model else None)
     engine = InferenceEngine(params, cfg, econf, device=device,
                              use_kernel=not args.no_kernel)
 
@@ -226,6 +229,8 @@ def main(argv=None) -> int:
         if prof is not None:
             stop_profile(prof, args.profile)
 
+    if rank != 0:
+        return 0            # every rank holds the same tokens
     stats.update(mode=args.mode, batch=args.batch, wall_s=dt,
                  total_new_tokens=args.max_new * len(outs))
     if args.json:

@@ -57,8 +57,19 @@ Host↔device traffic per link: a few int32 metadata arrays go up through
 pinned memory without blocking (first tokens, positions, page/slot
 coordinates, block tables; a speculative link uploads only its block
 tables and its active-row mask); tokens (and logprobs, or a speculative
-chain's acceptance counts) come down once per chain. Tensor parallelism
-raises NotImplementedError and names its ROADMAP item.
+chain's acceptance counts) come down once per chain.
+
+Tensor parallelism (EngineConfig.mesh_shape, ``{"model": m}`` or
+``{"data": d, "model": m}``; parallel/sharding.py): the engine runs in
+each rank of a torch.distributed group of d·m ranks, on the rank's card
+(``cuda:LOCAL_RANK`` by default). The paged path runs on this rank's
+shard of the weights (NH/m heads, Vp/m vocab rows) and its own pool of
+NH/m heads, through the same model functions with the TP model pieces
+(``sharding.TPModel``); the scheduler and block managers stay host-side
+and run the same schedule on every rank, so every rank returns the
+same tokens. As in the JAX package, logprobs, prompt logprobs,
+penalties and per-request sampling overrides are refused under TP; the
+"none" and "dense" modes run on the whole model on each rank.
 """
 
 from __future__ import annotations
@@ -70,13 +81,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from llmc_paged_tpu_torch import not_ported, resolve_device
+from llmc_paged_tpu_torch import resolve_device
 from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config, PageConfig
 from llmc_paged_tpu_torch.engine.scheduler import Request, Scheduler, State
 from llmc_paged_tpu_torch.kv import native
 from llmc_paged_tpu_torch.kv.layouts import init_pool, to_device, token_coords
 from llmc_paged_tpu_torch.models import gpt2, gpt2_paged
 from llmc_paged_tpu_torch.ops.int8 import quantize_params
+from llmc_paged_tpu_torch.parallel import sharding
 from llmc_paged_tpu_torch.sampler import (
     Sampler,
     reconstruct_topk_row,
@@ -296,7 +308,8 @@ def _check_window(window: Optional[int], cfg: GPT2Config) -> int:
 
 class InferenceEngine:
     """GPT-2 serving on one device: the card unless ``device`` says
-    otherwise (``device=None`` raises when no GPU is present).
+    otherwise (``device=None`` raises when no GPU is present; under
+    tensor parallelism it is ``cuda:LOCAL_RANK``).
     ``use_kernel=False`` selects the plain PyTorch attention instead of the
     CUDA kernels (the yardstick route). ``native_manager``: None takes
     the native C++ block manager when it builds, else the Python one;
@@ -306,18 +319,13 @@ class InferenceEngine:
                  econf: Optional[EngineConfig] = None, device=None,
                  use_kernel: bool = True,
                  native_manager: Optional[bool] = None):
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.econf = econf = econf or EngineConfig()
         self._check_config()
-        # int8 keeps the non-quantized leaves at activation_dtype
-        dtype = _DTYPES[econf.activation_dtype if econf.param_dtype == "int8"
-                        else econf.param_dtype]
-        self.params = gpt2.to_device(params, cfg, dtype, self.device)
-        quantized = self.params["wte"].dtype == torch.int8
-        # the bf16 prefill copy is taken from the float params BEFORE
-        # quantization; layernorm parameters stay fp32
-        self._prefill_params = None
+        if device is None and econf.mesh_shape:
+            device = f"cuda:{sharding.local_rank()}"
+        self.device = resolve_device(device)
+        quantized = str(params["wte"].dtype).endswith("int8")
         if econf.prefill_param_dtype is not None:
             if econf.prefill_param_dtype != "bfloat16":
                 raise ValueError("prefill_param_dtype: only 'bfloat16' is "
@@ -327,15 +335,34 @@ class InferenceEngine:
                 raise ValueError(
                     "prefill_param_dtype requires param_dtype='int8' with "
                     "FLOAT input params (it splits prefill/decode dtypes)")
-            self._prefill_params = {
-                k: (v.to(torch.bfloat16)
-                    if k not in gpt2.LN_KEYS and v.dtype == torch.float32
-                    else v)
-                for k, v in self.params.items()}
-        # int8 weights are quantized from the weights AFTER the cast to the
-        # activation dtype
-        if econf.param_dtype == "int8" and not quantized:
-            self.params = quantize_params(self.params)
+        # the whole model on the device: the paged path's weights on one
+        # device, and under tensor parallelism only for the "none" and
+        # "dense" modes, which run it on each rank
+        self.params = self._prefill_params = None
+        if not econf.mesh_shape or econf.cache_mode != "paged":
+            self._whole_model(params, quantized)
+        # the paged path's weights and model pieces: the whole model, or
+        # under tensor parallelism this rank's shard, prepared from the
+        # caller's FLOAT params in the TP layout (and quantized there) on
+        # the host, so that only the shard reaches the rank's device
+        self.mesh = None
+        self._model = gpt2_paged.SINGLE
+        self._decode_params = self.params
+        self._prompt_params = self._prefill_params or self.params
+        if econf.mesh_shape:
+            self.mesh = sharding.make_mesh(
+                model=int(econf.mesh_shape.get("model", 1)),
+                data=int(econf.mesh_shape.get("data", 1)))
+            self._model = sharding.TPModel(cfg, self.mesh)
+            self._decode_params = self._prompt_params = \
+                sharding.prepare_tp_params(
+                    params, cfg, self.mesh, param_dtype=econf.param_dtype,
+                    activation_dtype=econf.activation_dtype,
+                    device=self.device)
+            if econf.prefill_param_dtype is not None:
+                self._prompt_params = sharding.prepare_tp_params(
+                    params, cfg, self.mesh, param_dtype="bfloat16",
+                    device=self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.use_kernel = use_kernel
@@ -353,6 +380,26 @@ class InferenceEngine:
         # with the pool whose pages it describes
         self._prefix_mgr = None
 
+    def _whole_model(self, params, quantized: bool) -> None:
+        """``self.params`` (and the bf16 prefill copy) on the device."""
+        econf = self.econf
+        # int8 keeps the non-quantized leaves at activation_dtype
+        dtype = _DTYPES[econf.activation_dtype if econf.param_dtype == "int8"
+                        else econf.param_dtype]
+        self.params = gpt2.to_device(params, self.cfg, dtype, self.device)
+        # the bf16 prefill copy is taken from the float params BEFORE
+        # quantization; layernorm parameters stay fp32
+        if econf.prefill_param_dtype is not None:
+            self._prefill_params = {
+                k: (v.to(torch.bfloat16)
+                    if k not in gpt2.LN_KEYS and v.dtype == torch.float32
+                    else v)
+                for k, v in self.params.items()}
+        # int8 weights are quantized from the weights AFTER the cast to the
+        # activation dtype
+        if econf.param_dtype == "int8" and not quantized:
+            self.params = quantize_params(self.params)
+
     def _check_config(self) -> None:
         econf, page = self.econf, self.econf.page
         if econf.cache_mode not in ("none", "dense", "paged"):
@@ -363,7 +410,13 @@ class InferenceEngine:
                 "accepts argmax matches; rejection sampling for the "
                 "stochastic samplers is not implemented")
         if econf.mesh_shape:
-            raise not_ported("mesh_shape")
+            if set(econf.mesh_shape) - {"data", "model"}:
+                raise ValueError(f"mesh_shape {econf.mesh_shape}: the axes "
+                                 "are 'data' and 'model'")
+            sharding.require_group(
+                f"mesh_shape={econf.mesh_shape}",
+                int(econf.mesh_shape.get("model", 1))
+                * int(econf.mesh_shape.get("data", 1)))
         if econf.param_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"param_dtype {econf.param_dtype!r}")
         if econf.activation_dtype not in _DTYPES:
@@ -487,6 +540,10 @@ class InferenceEngine:
                     f"request {req.rid}: logprobs are disabled on this "
                     "engine (EngineConfig.serve_logprobs / CLI "
                     "--no-logprobs)")
+            if self.mesh is not None:
+                raise ValueError(
+                    f"request {req.rid}: logprobs under tensor "
+                    "parallelism are not supported yet")
             if econf.spec_k >= 2:
                 raise ValueError(
                     f"request {req.rid}: logprobs under speculative "
@@ -501,6 +558,10 @@ class InferenceEngine:
                     f"request {req.rid}: logprobs are disabled on this "
                     "engine (EngineConfig.serve_logprobs / CLI "
                     "--no-logprobs)")
+            if self.mesh is not None:
+                raise ValueError(
+                    f"request {req.rid}: prompt_logprobs under tensor "
+                    "parallelism are not supported yet")
             if econf.cache_mode != "paged":
                 raise ValueError(f"request {req.rid}: prompt_logprobs "
                                  "require paged serving")
@@ -521,11 +582,19 @@ class InferenceEngine:
                 if not (float("-inf") < v < float("inf")):
                     raise ValueError(f"request {req.rid}: {name} must be "
                                      f"finite, got {v}")
+            if self.mesh is not None:
+                raise ValueError(
+                    f"request {req.rid}: penalties under tensor "
+                    "parallelism are not supported yet")
             if econf.spec_k >= 2:
                 raise ValueError(
                     f"request {req.rid}: penalties under speculative "
                     "decoding are not supported (the penalized pick is "
                     "not the verified raw argmax)")
+        if _has_overrides(req) and self.mesh is not None:
+            raise ValueError(
+                f"request {req.rid}: per-request sampling overrides "
+                "under tensor parallelism are not supported yet")
         if (_has_overrides(req) and econf.spec_k >= 2
                 and not _effective(self._default_sampler(), req)[0]):
             raise ValueError(
@@ -581,7 +650,11 @@ class InferenceEngine:
                                             native=self.native_manager)
         pool = self._pool_cache
         self._pool_cache = None
-        if pool is None:
+        if pool is None and self.mesh is not None:
+            pool = sharding.init_tp_pool(self.cfg, page, self.mesh,
+                                         dtype=page.kv_dtype,
+                                         device=self.device)
+        elif pool is None:
             pool = init_pool(self.cfg, page, dtype=page.kv_dtype,
                              device=self.device)
         return mgr, pool
@@ -884,18 +957,19 @@ class InferenceEngine:
                     # the cached prefix through the block table (rows with
                     # offs 0 degenerate to plain prefill inside)
                     logits, pool = gpt2_paged.prefill_suffix_paged(
-                        self._prefill_params or self.params,
+                        self._prompt_params,
                         torch.from_numpy(xs), pg, sl, pool,
                         torch.from_numpy(tables_g), torch.from_numpy(offs),
                         cfg, last_pos=torch.from_numpy(last),
-                        use_kernel=self.use_kernel)             # (Bg, V)
+                        use_kernel=self.use_kernel,
+                        model=self._model)                      # (Bg, V)
                     suffix_prefills += 1
                 elif plp_rows:
                     # scoring rows take the full (Bg, T, V) logits, the
                     # next-token logprobs are taken on the device and
                     # fetched once for the wave
                     full, pool = gpt2_paged.prefill_paged(
-                        self._prefill_params or self.params,
+                        self._prompt_params,
                         torch.from_numpy(xs), pg, sl, pool, cfg,
                         last_pos=None,
                         use_kernel=self.use_kernel)             # (Bg, T, V)
@@ -908,10 +982,11 @@ class InferenceEngine:
                             float(v) for v in plp[i, : len(req.prompt) - 1]]
                 else:
                     logits, pool = gpt2_paged.prefill_paged(
-                        self._prefill_params or self.params,
+                        self._prompt_params,
                         torch.from_numpy(xs), pg, sl, pool, cfg,
                         last_pos=torch.from_numpy(last),
-                        use_kernel=self.use_kernel)             # (Bg, V)
+                        use_kernel=self.use_kernel,
+                        model=self._model)                      # (Bg, V)
                 if prefix_on:
                     # publish this wave's full prompt pages only now, after
                     # the call that writes their K/V is queued (a same-wave
@@ -1093,10 +1168,11 @@ class InferenceEngine:
                             pos0_d, -1)
                     out_d, counts_d, hist_d, first_d, pos0_d, pool = \
                         gpt2_paged.decode_chunk_spec(
-                            self.params, first_d, pos0_d, hist_d, pool,
-                            torch.from_numpy(tables), cfg, num_steps=S,
-                            spec_k=Ksp, ngram=econf.spec_ngram,
-                            use_kernel=self.use_kernel, active=keep)
+                            self._decode_params, first_d, pos0_d, hist_d,
+                            pool, torch.from_numpy(tables), cfg,
+                            num_steps=S, spec_k=Ksp, ngram=econf.spec_ngram,
+                            use_kernel=self.use_kernel, active=keep,
+                            model=self._model)
                     decode_steps += S
                     verify_steps += S
                     pending_spec.append((out_d, counts_d, list(plan)))
@@ -1317,12 +1393,13 @@ class InferenceEngine:
                                 [s for s, _ in deferred[2]]), dev)
                             link_first[dslots] = deferred[0]
                     res = gpt2_paged.decode_chunk_paged(
-                        self.params, link_first, torch.from_numpy(pos0),
+                        self._decode_params, link_first,
+                        torch.from_numpy(pos0),
                         torch.from_numpy(pgs), torch.from_numpy(sls),
                         torch.from_numpy(tables), pool, cfg,
                         num_steps=chunk, window=window,
                         use_kernel=self.use_kernel, want_logprobs=want_lp,
-                        **samp_kw, **pen_kw)
+                        model=self._model, **samp_kw, **pen_kw)
                     toks_out, counts_out, lp_out, pool = _unpack_chunk(
                         res, bool(pen_kw), want_lp)
                     if counts_out is not None:
@@ -1428,12 +1505,12 @@ class InferenceEngine:
                                           lengths)
                     t_sd0 = time.monotonic()
                     logits, pool = gpt2_paged.decode_step_paged(
-                        self.params, torch.from_numpy(toks),
+                        self._decode_params, torch.from_numpy(toks),
                         torch.from_numpy(wpe_pos), torch.from_numpy(pg),
                         torch.from_numpy(sl), torch.from_numpy(tables),
                         torch.from_numpy(lengths), pool, cfg,
                         use_kernel=self.use_kernel,
-                        starts=torch.from_numpy(starts))
+                        starts=torch.from_numpy(starts), model=self._model)
                     tacc["step_dispatch"] += time.monotonic() - t_sd0
                     decode_steps += 1
                     single_steps += 1
@@ -1515,7 +1592,8 @@ class InferenceEngine:
         """Run the JAX package's throwaway requests through every path
         this engine's configuration can reach (the smallest prefill
         bucket and the decode chain or single-token step, then the
-        logprobs and prompt-logprobs variants when serve_logprobs), so
+        logprobs and prompt-logprobs variants when serve_logprobs, but
+        not under tensor parallelism, which refuses them), so
         that the first tenant of a server pays none of the first-use
         costs: on the card, the CUDA kernels build (all four serving
         sources at once, the long-prompt prefill's flash kernel
@@ -1547,7 +1625,7 @@ class InferenceEngine:
             timings[tag] = round(time.monotonic() - t0, 3)
 
         one("default")                  # prefill bucket + chunk/step path
-        if self.econf.serve_logprobs:
+        if self.econf.serve_logprobs and self.mesh is None:
             if self.econf.spec_k < 2:
                 one("logprobs", logprobs=True)
             if not self.econf.page.prefix_cache:

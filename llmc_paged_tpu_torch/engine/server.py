@@ -38,6 +38,7 @@ import time
 from concurrent.futures import CancelledError, Future
 from typing import List, Optional, Sequence
 
+from llmc_paged_tpu_torch import TP_SERVING, not_ported
 from llmc_paged_tpu_torch.engine.scheduler import Request
 from llmc_paged_tpu_torch.sampler import Sampler
 
@@ -83,6 +84,11 @@ class ServingEngine:
     def __init__(self, engine, window: Optional[int] = None,
                  sampler: Optional[Sampler] = None,
                  max_pending: Optional[int] = None):
+        if getattr(engine, "mesh", None) is not None:
+            # every rank would need rank 0's queue, arrivals and cancels
+            # broadcast at each scheduler iteration
+            raise not_ported("ServingEngine over a tensor-parallel engine "
+                             "(EngineConfig.mesh_shape)", TP_SERVING)
         self._engine = engine
         self._window = window
         self._sampler = sampler

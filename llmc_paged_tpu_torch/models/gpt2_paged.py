@@ -19,6 +19,13 @@ of llmc_paged_tpu/models/gpt2_paged.py).
     pages are already in the pool (prefix caching), attending them
     through the multi-query parts kernel.
 
+Every function runs on one device, or on one rank's shard under tensor
+parallelism: ``model`` carries the pieces that differ (the embedding,
+the block around its attention middle, the logits, the heads a rank
+holds, the prompt attention and the suffix kernel gate). ``SINGLE`` is
+the one-device model and the default; ``parallel/sharding.py::TPModel``
+the head-sharded one.
+
 The layer and step loops are Python loops run eagerly. Pool updates are
 in place. Index tensors may be passed on the CPU or on the pool's
 device: block tables, lengths and tokens go up through pinned memory
@@ -68,10 +75,60 @@ def _dev(params) -> torch.device:
     return params["wpe"].device
 
 
+class SingleDevice:
+    """The model pieces of a forward on one device (the whole model):
+    ``attend(q, k, v)`` returns the heads (..., NH, HS) and ``block``
+    joins them into the (..., C) that attproj takes."""
+
+    @staticmethod
+    def heads(cfg: GPT2Config) -> int:
+        return cfg.num_heads
+
+    @staticmethod
+    def embed(params, tokens, wpe_pos):
+        return gpt2._embed(params, tokens, wpe_pos)
+
+    @staticmethod
+    def block(x, lp, cfg: GPT2Config, attend):
+        return gpt2._block(x, lp, cfg, lambda q, k, v: attend(q, k, v)
+                           .reshape(*q.shape[:-2], cfg.channels))
+
+    @staticmethod
+    def logits(x, params, cfg: GPT2Config):
+        return gpt2._logits(x, params, cfg)
+
+    @staticmethod
+    def prompt_attention(q, k, v, use_kernel: bool):
+        """Causal attention over the in-flight prompt: the flash kernel
+        for long bf16 waves (``ops/layers.prefill_attention``)."""
+        return L.prefill_attention(q, k, v, use_kernel)
+
+    @staticmethod
+    def suffix_kernel(T: int) -> bool:
+        """Whether a suffix prefill of T tokens reads the pool through the
+        multi-query kernel: any T on one device."""
+        return True
+
+
+SINGLE = SingleDevice()
+
+
+def _write_prompt(pool_l, k, v, page_ids) -> None:
+    """Whole-page prompt writes of (B, T, NH, HS) K/V into one layer, T
+    padded to whole pages (int8 pools quantize here)."""
+    pad = -k.shape[1] % pool_l[0].shape[3]
+    if pad:
+        k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    if len(pool_l) == 4:
+        write_prompt_pages_quant(pool_l, k, v, page_ids)
+    else:
+        write_prompt_pages(*pool_l, k, v, page_ids)
+
+
 @torch.no_grad()
 def decode_step_paged(params, tokens, positions, page, slot, block_tables,
                       lengths, pool: PagePool, cfg: GPT2Config,
-                      use_kernel: bool = True, starts=None):
+                      use_kernel: bool = True, starts=None, model=SINGLE):
     """One batched decode step over the paged pool.
 
     tokens (B,) new ids; positions (B,) their wpe positions; page/slot
@@ -85,8 +142,7 @@ def decode_step_paged(params, tokens, positions, page, slot, block_tables,
                                     lengths))
     starts = (torch.zeros_like(lengths) if starts is None
               else to_device(starts, dev))
-    B = tokens.shape[0]
-    x = gpt2._embed(params, tokens, positions)
+    x = model.embed(params, tokens, positions)
     quant = isinstance(pool, QuantPagePool)
     stack = gpt2._layer_stack(params)
 
@@ -100,11 +156,10 @@ def decode_step_paged(params, tokens, positions, page, slot, block_tables,
                 pool_l = write_layer_kv(*pool.layer(i), k, v, page, slot)
                 fn = (paged_decode_attention if use_kernel
                       else paged_decode_attention_ref)
-            att = fn(q.contiguous(), *pool_l, block_tables, lengths, starts)
-            return att.reshape(B, cfg.channels)
+            return fn(q.contiguous(), *pool_l, block_tables, lengths, starts)
 
-        x = gpt2._block(x, gpt2._layer(stack, i), cfg, attend)
-    return gpt2._logits(x, params, cfg), pool
+        x = model.block(x, gpt2._layer(stack, i), cfg, attend)
+    return model.logits(x, params, cfg), pool
 
 
 def _merge_parts(acc_p, m_p, l_p, acc_t, m_t, l_t, out_dtype):
@@ -196,7 +251,8 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
                        num_steps: int, window: int, use_kernel: bool = True,
                        rng=None, top_k=None, temperature=1.0, k_arr=None,
                        greedy_rows=None, want_logprobs: bool = False,
-                       pen_counts=None, freq_pen=None, pres_pen=None):
+                       pen_counts=None, freq_pen=None, pres_pen=None,
+                       model=SINGLE):
     """K = num_steps decode steps in one call.
 
     first_tokens (B,) the token fed at sub-step 0 (may be a device tensor
@@ -246,7 +302,7 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
     active = positions0 >= 0
     safe_pos0 = torch.where(active, positions0, 0).int()
     B = toks.shape[0]
-    NH, HS, C = cfg.num_heads, cfg.head_dim, cfg.channels
+    NH, HS = model.heads(cfg), cfg.head_dim
     quant = isinstance(pool, QuantPagePool)
     stack = gpt2._layer_stack(params)
     cdtype = params["wpe"].dtype            # the serving compute dtype
@@ -260,19 +316,18 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
         pos = safe_pos0 + j
         wpe_pos = torch.clamp(pos, max=window - 1)
         starts = torch.clamp(pos + 1 - window, min=0)
-        x = gpt2._embed(params, toks, wpe_pos)
+        x = model.embed(params, toks, wpe_pos)
         for i in range(cfg.num_layers):
             def attend(q, k, v, i=i, j=j):
                 tks[i][j] = k
                 tvs[i][j] = v
-                att = _chunk_attention(q.contiguous(), pool.layer(i), tks[i],
-                                       tvs[i], block_tables, lengths_pool,
-                                       starts, safe_pos0, j, use_kernel,
-                                       quant)
-                return att.reshape(B, C)
+                return _chunk_attention(q.contiguous(), pool.layer(i),
+                                        tks[i], tvs[i], block_tables,
+                                        lengths_pool, starts, safe_pos0, j,
+                                        use_kernel, quant)
 
-            x = gpt2._block(x, gpt2._layer(stack, i), cfg, attend)
-        logits = gpt2._logits(x, params, cfg)
+            x = model.block(x, gpt2._layer(stack, i), cfg, attend)
+        logits = model.logits(x, params, cfg)
         toks = _pick(logits, counts, rng, top_k, temperature, k_arr,
                      greedy_rows, freq_pen, pres_pen)
         if counts is not None:
@@ -371,7 +426,7 @@ def _spec_tail_attention(q, pool_l, tail_k, tail_v, block_tables, pos0,
 def decode_chunk_spec(params, first_tokens, positions0, hist,
                       pool: PagePool, block_tables, cfg: GPT2Config,
                       num_steps: int, spec_k: int, ngram: int = 3,
-                      use_kernel: bool = True, *, active):
+                      use_kernel: bool = True, *, active, model=SINGLE):
     """SPECULATIVE decode chunk: num_steps greedy verify steps, each
     consuming spec_k tokens (the carried token plus spec_k - 1 drafts from
     prompt lookup, _ngram_draft) in ONE forward. Greedy acceptance keeps
@@ -413,7 +468,7 @@ def decode_chunk_spec(params, first_tokens, positions0, hist,
     hist = to_device(hist, dev).int()
     block_tables = to_device(block_tables, dev)
     B = cur.shape[0]
-    NH, HS, C = cfg.num_heads, cfg.head_dim, cfg.channels
+    NH, HS = model.heads(cfg), cfg.head_dim
     TK = S * K
     H = hist.shape[1]
     act = positions0 >= 0
@@ -435,19 +490,18 @@ def decode_chunk_spec(params, first_tokens, positions0, hist,
         inputs = torch.cat([cur[:, None], drafts], dim=1)
         q_pos = (pos0 + t_off)[:, None] + karange[None, :]    # (B, K)
         wpe_pos = torch.clamp(q_pos, max=cfg.max_seq_len - 1)
-        x = gpt2._embed(params, torch.clamp(inputs, min=0), wpe_pos)
+        x = model.embed(params, torch.clamp(inputs, min=0), wpe_pos)
         ridx = (t_off[:, None] + karange[None, :]).T.long()  # (K, B)
         for i in range(cfg.num_layers):
             def attend(q, k, v, i=i):                       # (B, K, NH, HS)
                 tks[i][ridx, barange[None, :]] = k.transpose(0, 1).to(cdtype)
                 tvs[i][ridx, barange[None, :]] = v.transpose(0, 1).to(cdtype)
-                att = _spec_tail_attention(q.contiguous(), pool.layer(i),
-                                           tks[i], tvs[i], block_tables,
-                                           pos0, t_off, use_kernel, quant)
-                return att.reshape(B, K, C)
+                return _spec_tail_attention(q.contiguous(), pool.layer(i),
+                                            tks[i], tvs[i], block_tables,
+                                            pos0, t_off, use_kernel, quant)
 
-            x = gpt2._block(x, gpt2._layer(stack, i), cfg, attend)
-        o = torch.argmax(gpt2._logits(x, params, cfg), dim=-1).int()
+            x = model.block(x, gpt2._layer(stack, i), cfg, attend)
+        o = torch.argmax(model.logits(x, params, cfg), dim=-1).int()
 
         lead = torch.cumprod((o[:, :-1] == drafts).int(), dim=1)
         a = torch.where(act, 1 + lead.sum(dim=1), 0).int()      # (B,)
@@ -487,62 +541,53 @@ def decode_chunk_spec(params, first_tokens, positions0, hist,
 
 @torch.no_grad()
 def prefill_paged(params, tokens, page, slot, pool: PagePool,
-                  cfg: GPT2Config, last_pos=None, use_kernel: bool = True):
+                  cfg: GPT2Config, last_pos=None, use_kernel: bool = True,
+                  model=SINGLE):
     """Prompt forward that writes all T tokens' K/V into the pool.
 
     tokens (B, T) right-padded prompts; page (B, T) pool page per token
     (num_pages on padding → dropped). PRECONDITION: prompts start at
     position 0 of freshly allocated pages, so token t's slot is
     t % page_size; ``slot`` is accepted for signature symmetry only.
-    Attention is causal over the in-flight K/V: the flash kernel for
-    long bf16 waves, dense otherwise or with ``use_kernel=False``
-    (``ops/layers.prefill_attention``). ``last_pos`` (B,):
+    Attention is causal over the in-flight K/V (``model.prompt_attention``;
+    on one device the flash kernel for long bf16 waves, dense otherwise
+    or with ``use_kernel=False``). ``last_pos`` (B,):
     project logits only at each row's position last_pos[b] → (B, V);
     None → (B, T, V). Returns (logits, pool)."""
     del slot
     dev = _dev(params)
     tokens = to_device(tokens, dev)
     B, T = tokens.shape
-    x = gpt2._embed(params, tokens, torch.arange(T, device=dev)[None])
-    quant = isinstance(pool, QuantPagePool)
+    x = model.embed(params, tokens, torch.arange(T, device=dev)[None])
     stack = gpt2._layer_stack(params)
-    ps = pool.page_size
-    Tp = -(-T // ps) * ps
-    page_ids = prompt_page_ids(page, T, ps, pool.num_pages)
-
-    def pad_t(a):
-        return a if Tp == T else F.pad(a, (0, 0, 0, 0, 0, Tp - T))
+    page_ids = prompt_page_ids(page, T, pool.page_size, pool.num_pages)
 
     for i in range(cfg.num_layers):
         def attend(q, k, v, i=i):                       # (B, T, NH, HS)
-            if quant:
-                write_prompt_pages_quant(pool.layer(i), pad_t(k), pad_t(v),
-                                         page_ids)
-            else:
-                write_prompt_pages(*pool.layer(i), pad_t(k), pad_t(v),
-                                   page_ids)
+            _write_prompt(pool.layer(i), k, v, page_ids)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            att = L.prefill_attention(qh, kh, vh, use_kernel)
-            return att.transpose(1, 2).reshape(B, T, cfg.channels)
+            att = model.prompt_attention(qh, kh, vh, use_kernel)
+            return att.transpose(1, 2)
 
-        x = gpt2._block(x, gpt2._layer(stack, i), cfg, attend)
+        x = model.block(x, gpt2._layer(stack, i), cfg, attend)
 
     if last_pos is not None:
         x = x[torch.arange(B, device=dev), to_device(last_pos, dev).long()]
-    return gpt2._logits(x, params, cfg), pool
+    return model.logits(x, params, cfg), pool
 
 
 @torch.no_grad()
 def prefill_suffix_paged(params, tokens, page, slot, pool: PagePool,
                          block_tables, pool_len, cfg: GPT2Config, last_pos,
-                         use_kernel: bool = True):
+                         use_kernel: bool = True, model=SINGLE):
     """Prefill of a prompt SUFFIX whose prefix is already resident in the
     pool (prefix caching, PageConfig.prefix_cache): suffix token j of row
     b sits at absolute position pool_len[b] + j and attends the cached
     prefix THROUGH THE BLOCK TABLE (multi-query parts: one page walk
     scores a tile of suffix queries, the speculative-verify read path)
-    plus the suffix itself causally, merged online-softmax. Any suffix
-    length goes through the kernel on the card.
+    plus the suffix itself causally, merged online-softmax. On one device
+    any suffix length goes through the kernel on the card
+    (``model.suffix_kernel``).
 
     PRECONDITIONS: pool_len[b] % page_size == 0 (only full pages are
     shared) and the suffix starts on a freshly allocated page, so the
@@ -562,33 +607,23 @@ def prefill_suffix_paged(params, tokens, page, slot, pool: PagePool,
     pool_len = to_device(pool_len, dev).int()
     B, T = tokens.shape
     pos = pool_len[:, None] + torch.arange(T, device=dev)[None, :]
-    x = gpt2._embed(params, tokens,
+    x = model.embed(params, tokens,
                     torch.clamp(pos, max=cfg.max_seq_len - 1))
     quant = isinstance(pool, QuantPagePool)
     stack = gpt2._layer_stack(params)
-    ps = pool.page_size
-    Tp = -(-T // ps) * ps
-    page_ids = prompt_page_ids(page, T, ps, pool.num_pages)
+    page_ids = prompt_page_ids(page, T, pool.page_size, pool.num_pages)
     t_off = torch.zeros(B, dtype=torch.int32, device=dev)
-
-    def pad_t(a):
-        return a if Tp == T else F.pad(a, (0, 0, 0, 0, 0, Tp - T))
+    use_k = use_kernel and model.suffix_kernel(T)
 
     for i in range(cfg.num_layers):
         def attend(q, k, v, i=i):                       # (B, T, NH, HS)
-            if quant:
-                write_prompt_pages_quant(pool.layer(i), pad_t(k), pad_t(v),
-                                         page_ids)
-            else:
-                write_prompt_pages(*pool.layer(i), pad_t(k), pad_t(v),
-                                   page_ids)
-            att = _spec_tail_attention(q.contiguous(), pool.layer(i),
-                                       k.transpose(0, 1), v.transpose(0, 1),
-                                       block_tables, pool_len, t_off,
-                                       use_kernel, quant)
-            return att.reshape(B, T, cfg.channels)
+            _write_prompt(pool.layer(i), k, v, page_ids)
+            return _spec_tail_attention(q.contiguous(), pool.layer(i),
+                                        k.transpose(0, 1), v.transpose(0, 1),
+                                        block_tables, pool_len, t_off,
+                                        use_k, quant)
 
-        x = gpt2._block(x, gpt2._layer(stack, i), cfg, attend)
+        x = model.block(x, gpt2._layer(stack, i), cfg, attend)
 
     x = x[torch.arange(B, device=dev), to_device(last_pos, dev).long()]
-    return gpt2._logits(x, params, cfg), pool
+    return model.logits(x, params, cfg), pool

@@ -61,11 +61,20 @@ def int8_linear(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     taken in f32 — int8 weights are exact in bf16 and a product of two
     bf16 values is exact in f32, so this is the JAX package's bf16
     multiply with f32 accumulation. False: the fp32-exact product."""
-    xin = x.to(torch.bfloat16).float() if bf16_compute else x.float()
-    out = torch.matmul(xin, wq.t().float()) * scale
+    out = int8_product(x, wq, bf16_compute) * scale
     if b is not None:
         out = out + b
     return out
+
+
+def int8_product(x: torch.Tensor, wq: torch.Tensor,
+                 bf16_compute: bool = True) -> torch.Tensor:
+    """The f32 product of ``int8_linear`` before its scale: x(..., IC) @
+    wq(OC, IC)^T, x rounded to bf16 first with ``bf16_compute``. The
+    tensor-parallel row-parallel linear sums these over the ranks and
+    scales once, as the single-device linear does."""
+    xin = x.to(torch.bfloat16).float() if bf16_compute else x.float()
+    return torch.matmul(xin, wq.t().float())
 
 
 def dequantize(wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

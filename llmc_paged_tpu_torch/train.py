@@ -10,7 +10,14 @@ timed AdamW step (:1233-1241, gpt2_update hyperparameters :922-948).
 Checkpoints can be written back in the byte-exact reference format via
 formats.write_checkpoint. Runs on the card; ``LLMC_PLATFORM=cpu`` selects
 the CPU. fp32 products run as PyTorch's default leaves them, TF32 off
-(the port's parity mode). Data parallelism is not in the port yet.
+(the port's parity mode).
+
+Data parallelism (``train(data_parallel=N)``, ``--data-parallel N``):
+one process a rank in a torch.distributed group of N ranks (torchrun;
+NCCL on the cards, gloo with ``LLMC_PLATFORM=cpu``), each on its rows
+of every global batch, the gradients averaged by one all-reduce a step
+(``parallel/sharding.py::make_dp_train_step``); only rank 0 logs and
+saves.
 """
 
 from __future__ import annotations
@@ -21,15 +28,11 @@ from typing import Optional
 
 import torch
 
-from llmc_paged_tpu_torch import (
-    formats,
-    not_ported,
-    platform_device,
-    resolve_device,
-)
+from llmc_paged_tpu_torch import formats, platform_device, resolve_device
 from llmc_paged_tpu_torch.config import GPT2Config
 from llmc_paged_tpu_torch.eval import evaluate
 from llmc_paged_tpu_torch.models import gpt2
+from llmc_paged_tpu_torch.parallel import sharding
 from llmc_paged_tpu_torch.sampler import Sampler
 from llmc_paged_tpu_torch.tokenizer import Tokenizer
 from llmc_paged_tpu_torch.utils.dataloader import DataLoader
@@ -48,14 +51,24 @@ def train(cfg: GPT2Config, params, train_loader: DataLoader,
 
     AdamW is ``optax.adamw``'s math (decoupled decay on every leaf, no
     parameter groups); torch decays p before the Adam step where optax
-    folds lr·wd·p into the update, equal in exact arithmetic."""
-    if data_parallel > 1:
-        raise not_ported(f"data_parallel={data_parallel}")
+    folds lr·wd·p into the update, equal in exact arithmetic.
+
+    ``data_parallel=N > 1`` runs in each rank of a process group of N
+    ranks: rank 0's params are broadcast, each rank takes its rows of
+    every batch, and only rank 0 calls ``log``."""
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in params.items()}
     dev = params["wpe"].device
     opt = torch.optim.AdamW(params.values(), lr=lr, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=weight_decay)
+    dp_step = None
+    if data_parallel > 1:
+        mesh = sharding.make_mesh(model=1, data=data_parallel)
+        dp_step, shard_batch, replicate = sharding.make_dp_train_step(
+            cfg, mesh, opt)
+        replicate(params)
+        if mesh.rank != 0:
+            log = _quiet
 
     sampler = Sampler(seed)
     losses = []
@@ -74,15 +87,22 @@ def train(cfg: GPT2Config, params, train_loader: DataLoader,
             log(f"step {step} sample: {text!r}")
         x, y = (torch.from_numpy(a).to(dev) for a in train_loader.next_batch())
         t0 = time.monotonic()
-        opt.zero_grad(set_to_none=True)
-        loss = gpt2.loss_fn(params, x, y, cfg)
-        loss.backward()
-        opt.step()
-        loss = float(loss.detach())
+        if dp_step is not None:
+            loss = float(dp_step(params, *shard_batch(x, y)))
+        else:
+            opt.zero_grad(set_to_none=True)
+            loss = gpt2.loss_fn(params, x, y, cfg)
+            loss.backward()
+            opt.step()
+            loss = float(loss.detach())
         losses.append(loss)
         log(f"step {step}: train loss {loss:.6f} "
             f"(took {(time.monotonic() - t0) * 1e3:.2f} ms)")
     return {k: v.detach() for k, v in params.items()}, losses
+
+
+def _quiet(*_):
+    pass
 
 
 def main(argv=None) -> int:
@@ -110,10 +130,14 @@ def main(argv=None) -> int:
     ap.add_argument("--max-seq-len", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=1337)
     args = ap.parse_args(argv)
+    plat = platform_device()
+    rank = 0
     if args.data_parallel > 1:
-        ap.error(str(not_ported(f"--data-parallel {args.data_parallel}")))
-
-    device = resolve_device(platform_device())
+        rank = sharding.join_ranks(ap, "--data-parallel", args.data_parallel,
+                                   plat, "llmc_paged_tpu_torch.train")
+        if plat is None:
+            plat = f"cuda:{sharding.local_rank()}"
+    device = resolve_device(plat)
     if args.checkpoint:
         cfg, params_np = formats.read_checkpoint(args.checkpoint)
         params = gpt2.to_device(params_np, cfg, device=device)
@@ -135,9 +159,9 @@ def main(argv=None) -> int:
                       weight_decay=args.weight_decay,
                       val_every=args.val_every,
                       sample_every=args.sample_every, tokenizer=tok,
-                      seed=args.seed)
+                      seed=args.seed, data_parallel=args.data_parallel)
 
-    if args.save:
+    if args.save and rank == 0:
         host = {k: v.cpu().numpy() for k, v in params.items()}
         formats.write_checkpoint(args.save, cfg, host, "float32")
         print(f"saved {args.save}")

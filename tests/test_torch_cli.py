@@ -4,8 +4,8 @@ the --json tokens are equal for sampled and greedy batches at page sizes
 32 (the default) and 8, the three --mode values, and a sliding window.
 One subprocess run shows that ``python -m llmc_paged_tpu_torch.engine.cli``
 works; --serve, --warmup, --max-pending, --device-sampling and --profile
-run, and --mesh-model, not in the port yet, exits with an error naming
-its ROADMAP item."""
+run, and --mesh-model 2 outside torchrun exits naming the torchrun
+command (tests/test_torch_mp_dryrun.py runs it under torchrun)."""
 
 import contextlib
 import io
@@ -107,17 +107,20 @@ def test_cli_module_entry_point(files, cpu_env):
                                   "--mesh-model=2", "--profile=trace"])
 def test_cli_flags_outside_the_port_exit(files, cpu_env, capsys, tmp_path,
                                          monkeypatch, flag):
-    """Of the flags that once exited for want of their ROADMAP item, only
-    --mesh-model (tensor parallelism) still does; the others run as in
-    the JAX package's CLI (--serve hands the engine to serve_http with
+    """The flags that once exited for want of their ROADMAP item run as
+    in the JAX package's CLI (--serve hands the engine to serve_http with
     the port, --max-pending and --window; --warmup and --max-pending
-    without --serve change nothing; --profile writes its trace)."""
+    without --serve change nothing; --profile writes its trace);
+    --mesh-model 2 needs one process a rank, so a plain start exits 2
+    naming the torchrun command."""
     from llmc_paged_tpu_torch.engine import http_server
     if flag == "--mesh-model=2":
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
         with pytest.raises(SystemExit) as exc:
             TC.main(files + [flag])
         assert exc.value.code == 2
-        assert "ROADMAP" in capsys.readouterr().err
+        assert ("torchrun --nproc-per-node 2 -m "
+                "llmc_paged_tpu_torch.engine.cli") in capsys.readouterr().err
         return
     served = {}
     monkeypatch.setattr(http_server, "serve_http",

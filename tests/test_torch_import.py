@@ -28,7 +28,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
     assert {"llmc_paged_tpu_torch.eval", "llmc_paged_tpu_torch.train",
             "llmc_paged_tpu_torch.utils.dataloader",
             "llmc_paged_tpu_torch.kv.native",
-            "llmc_paged_tpu_torch.ops.dev.dump_chunk_trace"} <= set(
+            "llmc_paged_tpu_torch.ops.dev.dump_chunk_trace",
+            "llmc_paged_tpu_torch.parallel",
+            "llmc_paged_tpu_torch.parallel.sharding",
+            "llmc_paged_tpu_torch.parallel.mp_dryrun"} <= set(
                 _port_modules())
     code = (
         "import importlib, sys\n"
@@ -67,6 +70,8 @@ def test_no_source_names_jax_or_the_jax_package():
     assert {os.path.join(PKG, "kv", "native.py"),
             os.path.join(PKG, "ops", "dev", "dump_chunk_trace.py"),
             os.path.join(PKG, "csrc", "block_manager.cpp")} <= set(files)
+    assert {os.path.join(PKG, "parallel", n) for n in
+            ("__init__.py", "sharding.py", "mp_dryrun.py")} <= set(files)
     hits = []
     for f in files:
         with open(f) as fh:
@@ -131,16 +136,30 @@ def test_eval_and_train_clis_default_to_the_card(fixtures_dir, module):
     assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
 
 
-def _not_ported_message(where, capsys):
-    """The "not in the port yet" error of the engine (mesh_shape), the
-    serving CLI (--mesh-model), train() (data_parallel) or the train CLI
-    (--data-parallel)."""
+@pytest.fixture
+def one_rank(tmp_path):
+    """A torch.distributed group of this process alone (gloo, a file
+    rendezvous), destroyed after the test."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def _parallel_message(where, capsys, request):
+    """The error of a parallel option outside a process group of its size:
+    the engine (mesh_shape), the serving CLI (--mesh-model), train()
+    (data_parallel), the train CLI (--data-parallel); and the "not ported
+    yet" error of the serving front over a tensor-parallel engine (built
+    in a group of one rank)."""
     import dataclasses
 
     from llmc_paged_tpu_torch import train
     from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config
     from llmc_paged_tpu_torch.engine import cli
     from llmc_paged_tpu_torch.engine.engine import InferenceEngine
+    from llmc_paged_tpu_torch.engine.server import ServingEngine
     from llmc_paged_tpu_torch.models import gpt2
     cfg = GPT2Config.tiny()
     params = gpt2.init_params(cfg, torch.Generator().manual_seed(0),
@@ -154,24 +173,43 @@ def _not_ported_message(where, capsys):
             main(argv)
         assert exc.value.code == 2
         return capsys.readouterr().err.strip().splitlines()[-1]
-    with pytest.raises(NotImplementedError) as exc:
+
+    def engine(model):
+        return InferenceEngine(params, cfg, dataclasses.replace(
+            EngineConfig(greedy=True), mesh_shape={"model": model}),
+            device="cpu")
+
+    if where == "serving":
+        request.getfixturevalue("one_rank")
+        with pytest.raises(NotImplementedError) as exc:
+            ServingEngine(engine(1))
+        return str(exc.value)
+    with pytest.raises(RuntimeError) as exc:
         if where == "engine":
-            InferenceEngine(params, cfg, dataclasses.replace(
-                EngineConfig(greedy=True), mesh_shape={"model": 2}),
-                device="cpu")
+            engine(2)
         else:
             train.train(cfg, params, None, data_parallel=2)
     return str(exc.value)
 
 
-@pytest.mark.parametrize("where", ["engine", "cli", "train", "train_cli"])
-def test_not_ported_messages_name_a_roadmap_item(capsys, where):
-    """Each message names a ROADMAP.md heading and a bold item under it
-    that appear there verbatim."""
-    msg = _not_ported_message(where, capsys)
+@pytest.mark.parametrize("where", ["engine", "cli", "train", "train_cli",
+                                   "serving"])
+def test_not_ported_messages_name_a_roadmap_item(capsys, request, where):
+    """Tensor and data parallelism outside a process group of the right
+    size: each error names torchrun, and the two Python entry points also
+    init_distributed. The one parallel option not in the port, the
+    serving front over TP ranks, names a ROADMAP.md heading and a bold
+    item under it that appear there verbatim."""
+    msg = _parallel_message(where, capsys, request)
+    if where != "serving":
+        assert "torchrun --nproc-per-node 2" in msg, msg
+        if where in ("engine", "train"):
+            assert "init_distributed" in msg, msg
+        return
     m = re.search(r"\(ROADMAP\.md, '([^']+)': ([^)]+)\)$", msg)
     assert m, msg
     heading, item = m.groups()
+    assert item == "The serving front over tensor-parallel ranks"
     with open(os.path.join(ROOT, "ROADMAP.md")) as f:
         roadmap = f.read()
     at = roadmap.find(f"### 1. {heading}")
@@ -179,9 +217,12 @@ def test_not_ported_messages_name_a_roadmap_item(capsys, where):
     assert f"**{item}" in roadmap[at:roadmap.find("\n### ", at + 1)], item
 
 
-def test_options_outside_the_slice_raise():
-    """Only tensor parallelism (mesh_shape) is outside the port now:
-    device sampling, logprobs, penalties and the serving hooks run."""
+def test_options_outside_the_slice_raise(one_rank):
+    """Every engine option is in the port: a mesh_shape engine builds and
+    serves inside a group of one rank (refusing, as the JAX package does
+    under TP, logprobs, penalties and per-request overrides), a mesh
+    larger than the group raises; device sampling, logprobs, penalties
+    and the serving hooks run."""
     import dataclasses
 
     from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config, \
@@ -194,9 +235,21 @@ def test_options_outside_the_slice_raise():
                               device="cpu")
     base = EngineConfig(greedy=True, page=PageConfig(page_size=8,
                                                      pages_per_seq=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         InferenceEngine(params, cfg, dataclasses.replace(
             base, mesh_shape={"model": 2}), device="cpu")
+    tp = InferenceEngine(params, cfg, dataclasses.replace(
+        base, mesh_shape={"data": 1, "model": 1}), device="cpu")
+    done = tp.run([Request(rid=0, prompt=[1, 2], max_new_tokens=3)])
+    assert len(done[0].generated) == 3
+    assert set(tp.warmup()) == {"default"}   # no logprobs variant under TP
+    for kw, what in ((dict(logprobs=True), "logprobs"),
+                     (dict(prompt_logprobs=True), "prompt_logprobs"),
+                     (dict(frequency_penalty=0.5), "penalties"),
+                     (dict(top_k=3), "per-request sampling overrides")):
+        with pytest.raises(ValueError, match=f": {what} under tensor "
+                                             "parallelism are not"):
+            tp.run([Request(rid=0, prompt=[1, 2], max_new_tokens=2, **kw)])
     # speculative decode, prefix caching, host and device sampling and
     # the dense and no-cache modes are in the port: they build
     for change in (dict(spec_k=2), dict(spec_k=4, page=dataclasses.replace(
