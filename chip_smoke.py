@@ -188,8 +188,32 @@ Phases (any failed check raises, and the script exits non-zero):
      a decode step and tok/s for TP and one rank, and ms an all-reduce
      and an all-gather at the step's shapes (over gloo they pass through
      the host and say nothing of NCCL); each line beside the card's name
-     and power limit. ``--parallel-only`` runs
-     phases 1, 2 and 17 alone.
+     and power limit.
+ 18. (run after phase 17, before phases 11 and 12) the serving front over
+     TP ranks (engine/server.py's broadcast of the leader's arrivals,
+     cancels and close; engine/http_server.py; the CLI's --serve
+     --mesh-model) on phase 17's weights, through
+     parallel/mp_dryrun.serve_run in rank processes, the leader (rank 0)
+     answering HTTP clients in its own process: (a) two ranks sharing
+     the card over gloo; (b) where the machine has two cards or more,
+     min(4, cards) ranks over NCCL, and the CLI's --serve PORT
+     --mesh-model 2 --warmup under torchrun (two concurrent POSTs beside
+     the single-rank CLI's tokens, then SIGINT: every process gone
+     within 30 s); on one card it prints that (b) did not run. Each leg:
+     fp32 (TF32 off), 8 concurrent POSTs of 128 + 32 tokens equal the TP
+     engine's batch run() in the same pool and every rank finished the
+     same streams; a ninth client (96 new tokens) that disconnects after
+     two stream lines is cancelled before its end, a prefix of its
+     uncancelled stream, and every rank has all 28 pages free after the
+     drain; the int8 headline at
+     phase 13's engine settings without per-request overrides (int8
+     weights and KV, bf16 activations and prefill copy, device sampling,
+     top-k 40, temperature 0.8, chunks of 16): warmup() on every rank,
+     then 8 concurrent requests of 128 + 128: client tok/s and p50 TTFT
+     beside phase 13's, int8 parts launches = L x chained steps on every
+     rank, the serving broadcasts' count, median host ms on the leader
+     and share of a decode link's host ms. ``--parallel-only`` runs
+     phases 1, 2, 17 and 18 alone.
 Every kernel time is the lab harness's: CUDA events over launches queued
 behind a sleep kernel, the median of 3 runs.
 The line before the last is a JSON object {"kernels": [...]} (fifteen
@@ -985,64 +1009,6 @@ def phase_cli(torch, pa, params32, cfg, device):
 
 # ---- phase 13: the serving front ---------------------------------------------
 
-def http_post(url, payload, timeout=300):
-    """POST ``payload`` as JSON; returns (status, reply, seconds)."""
-    import urllib.error
-    import urllib.request
-    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
-                                 headers={"Content-Type": "application/json"},
-                                 method="POST")
-    t0 = time.monotonic()
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as r:
-            return r.status, json.loads(r.read()), time.monotonic() - t0
-    except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read()), time.monotonic() - t0
-
-
-def http_stream(url, payload, timeout=300):
-    """POST a streaming request and read it to its end; returns (the
-    streamed tokens, seconds to the first token line, the final line)."""
-    import urllib.request
-    req = urllib.request.Request(
-        url, data=json.dumps({**payload, "stream": True}).encode(),
-        headers={"Content-Type": "application/json"}, method="POST")
-    t0 = time.monotonic()
-    toks, t_first, final = [], None, None
-    with urllib.request.urlopen(req, timeout=timeout) as r:
-        for line in r:
-            obj = json.loads(line)
-            if obj.get("done"):
-                final = obj
-            else:
-                toks.extend(obj["tokens"])
-                if t_first is None:
-                    t_first = time.monotonic() - t0
-    return toks, t_first, final
-
-
-def http_disconnect(host, port, payload):
-    """POST a streaming request over a raw socket, read its first two
-    token lines (the first holds only the prefill's pick) and close the
-    connection; returns their tokens."""
-    lines = 2
-    import socket
-    body = json.dumps({**payload, "stream": True}).encode()
-    s = socket.create_connection((host, port), timeout=120)
-    s.sendall(b"POST /generate HTTP/1.1\r\nHost: smoke\r\n"
-              b"Content-Type: application/json\r\n"
-              + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
-    buf = b""
-    while buf.partition(b"\r\n\r\n")[2].count(b"\n") < lines:
-        chunk = s.recv(65536)
-        check(bool(chunk), f"disconnect: the stream closed before {lines} "
-                           "lines")
-        buf += chunk
-    s.close()
-    got = buf.partition(b"\r\n\r\n")[2].split(b"\n")[:lines]
-    return [t for ln in got for t in json.loads(ln)["tokens"]]
-
-
 def concurrently(fn, jobs):
     """fn(job) for every job, each on its own thread; results in order."""
     import threading
@@ -1068,12 +1034,17 @@ def concurrently(fn, jobs):
 def phase_serving(torch, pa, params32, cfg, device, greedy_host_ms):
     """Phase 13: ServingEngine and the HTTP front on the card, an fp32
     parity engine and the int8 headline engine under device sampling.
-    Returns the quantized parts kernel's launches of the headline
-    engine's served run."""
+    Returns the headline's served numbers (client tok/s, the engine's
+    decode_tok_per_s and p50_ttft_s) for phase 18."""
     from llmc_paged_tpu_torch.engine.http_server import HttpServingFront
     from llmc_paged_tpu_torch.engine.scheduler import Request
     from llmc_paged_tpu_torch.engine.server import ServingEngine
     from llmc_paged_tpu_torch.models import gpt2, gpt2_paged
+    from llmc_paged_tpu_torch.parallel.mp_dryrun import (
+        http_disconnect,
+        http_post,
+        http_stream,
+    )
     L, V = cfg.num_layers, cfg.vocab_size
     prompts = prompts_for(torch, 8, [128] * 8, V, 8, device)
     NEW = 48
@@ -1296,7 +1267,8 @@ def phase_serving(torch, pa, params32, cfg, device, greedy_host_ms):
         f"{syncs} {json.dumps(where, sort_keys=True)}")
     check(syncs == 0, f"device-sampled link: {syncs} synchronizing calls")
     del pool
-    return launches["paged_decode_attention_quant_parts"]
+    return {"tok_s": n_tok / t_http, "decode_tok_per_s": st[
+        "decode_tok_per_s"], "p50_ttft_s": st["p50_ttft_s"]}
 
 
 # ---- phase 14: the long-prompt prefill ---------------------------------------
@@ -2402,6 +2374,225 @@ def parallel_leg(torch, cfg, runs, ref, single_st, dp_want, xy, leg, n,
             + f"); rank start {t_start:.1f} s [{card}]")
 
 
+# ---- phase 18: the serving front over TP ranks -------------------------------
+
+SERVE_TASK = PAR_TASKS + "serve_run"
+PHASE_18 = ("phase 18: the serving front over TP ranks (ServingEngine, "
+            "HttpServingFront, --serve --mesh-model), GPT-2 124M at full "
+            "width")
+
+
+def phase_tp_serving(torch, card, single=None):
+    """Phase 18 (module docstring): ServingEngine, HttpServingFront and
+    the CLI's --serve over TP ranks, on phase 17's weights (PAR_SEED).
+    ``single``: phase 13's single-rank numbers (None when it did not
+    run)."""
+    import dataclasses
+
+    from llmc_paged_tpu_torch.config import GPT2Config
+    cfg = GPT2Config.gpt2_124m()
+    V = cfg.vocab_size
+    prompts = prompts_for(torch, 8, [128] * 8, V, 1, "cuda")   # phase 17's
+    # the fp32 rows, and a ninth with row 1's prompt whose client leaves
+    # (the front sees it gone at its second write after the two lines
+    # read, so the engine makes about 3 links of 16 more)
+    f32 = (par_requests(prompts, 32)
+           + [dict(rid=8, prompt=list(prompts[1]), max_new_tokens=96)])
+    int8 = par_requests(prompts_for(torch, 8, [128] * 8, V, 9, "cuda"),
+                        128)                                   # phase 13's
+    n_cards = torch.cuda.device_count()
+    legs = [("a", 2, "gloo", "cuda:0")]
+    if n_cards >= 2:
+        legs.append(("b", min(4, n_cards), "nccl", "cuda"))
+    else:
+        log(f"  (b) NCCL across cards and the CLI under torchrun: not run "
+            f"({n_cards} card; NCCL takes one rank a card) [{card}]")
+    for leg, n, backend, dev in legs:
+        mesh = {"model": n}
+        econf32 = par_econf("float32", "float32", 28, mesh=mesh,
+                            stream_links=1)
+        # phase 13's headline settings, without per-request overrides
+        econf8 = dataclasses.replace(
+            par_econf("int8", "int8", 28, mesh=mesh), greedy=False,
+            device_sampling=True, top_k=40, temperature=0.8)
+        tp_serving_leg(cfg, f32, int8, econf32, econf8, single, leg, n,
+                       backend, dev, card)
+    if n_cards >= 2:
+        tp_cli_serve(torch, cfg, card)
+
+
+def same_on_every_rank(what, res, key):
+    for rank, r in enumerate(res[1:], 1):
+        check(r[key] == res[0][key], f"{what}: rank {rank}'s {key} differ "
+                                     "from rank 0's")
+
+
+def tp_serving_leg(cfg, f32, int8, econf32, econf8, single, leg, n,
+                   backend, dev, card):
+    """One leg of phase 18: ``n`` rank processes over ``backend`` on
+    ``dev``, the leader (rank 0) answering HTTP clients in its process."""
+    from llmc_paged_tpu_torch.parallel.mp_dryrun import RankPool
+    L = cfg.num_layers
+    what = (f"({leg}) {n} ranks over {backend}"
+            + (" sharing one card" if dev == "cuda:0" else ", a card each"))
+    t0 = time.monotonic()
+    with RankPool(n, backend, dev, timeout_s=600) as pool:
+        pool.run(PAR_TASKS + "rank_device")       # every rank has joined
+        t_start = time.monotonic() - t0
+        # 1-2. fp32: 8 concurrent POSTs and a ninth client who leaves
+        t1 = time.monotonic()
+        res = pool.run(SERVE_TASK, PAR_SEED, cfg, econf32, f32,
+                       client="http", cancel_running=8)
+        lead = res[0]
+        batch, served = lead["batch"], lead["served"]
+        for i in range(8):
+            check(served[i]["tokens"] == batch[i],
+                  f"{what}: fp32 served row {i} parts from the TP batch "
+                  f"run: {served[i]['tokens'][128:140]} vs "
+                  f"{batch[i][128:140]}")
+        same_on_every_rank(f"{what}: fp32", res, "finished")
+        # the front numbers its requests itself: find the cancelled one
+        got = served[8]["tokens"]
+        cut = [t for t, cancelled in lead["finished"].values() if cancelled]
+        made = len(cut[0]) - 128 if len(cut) == 1 else None
+        check(served[8]["cancelled"] and made is not None
+              and 128 < len(got) <= len(cut[0]) < len(batch[8])
+              and cut[0] == batch[8][: len(cut[0])],
+              f"{what}: the disconnected stream ({len(got) - 128} tokens "
+              f"streamed, {made} made) is not a cancelled prefix of its "
+              "uncancelled stream")
+        free = [r["live"]["pages_free"] for r in res]
+        check(free == [28] * n, f"{what}: pages free after the drain "
+                                f"{free}, want 28 on every rank")
+        log(f"  {what}: fp32, 8 concurrent HTTP requests of 128 + 32 "
+            f"tokens: every row equals the TP batch run, every rank "
+            f"finished the same streams; a client that left after "
+            f"{len(got) - 128} streamed tokens: cancelled at {made} of 96, "
+            f"a prefix of its uncancelled stream; pages free after the "
+            f"drain {free}; broadcasts {lead['live']['broadcasts']} "
+            f"({time.monotonic() - t1:.1f} s) [{card}]")
+        # 3. the int8 headline: warmup on every rank, then 8 concurrent
+        # requests of 128 + 128
+        res = pool.run(SERVE_TASK, PAR_SEED, cfg, econf8, int8,
+                       client="http", batch=False, warmup=True)
+        lead = res[0]
+        st, live = lead["stats"], lead["live"]
+        same_on_every_rank(f"{what}: int8", res, "finished")
+        n_tok = sum(len(s["tokens"]) - 128 for s in lead["served"].values())
+        check(n_tok == 8 * 128 and all(
+            0 <= t < cfg.vocab_size for s in lead["served"].values()
+            for t in s["tokens"]), f"{what}: int8: {n_tok} tokens")
+        launches = [r["launches"]["paged_decode_attention_quant_parts"]
+                    for r in res]
+        steps = [r["stats"]["decode_steps"] for r in res]
+        check(all(lc == L * k and r["stats"]["single_steps"] == 0
+                  for lc, k, r in zip(launches, steps, res)),
+              f"{what}: int8 parts launches {launches}, want L x chained "
+              f"steps {steps} on every rank")
+        link_ms = host_ms_step(st) * econf8.decode_chunk
+        bcast = live["broadcast_ms_p50"]
+        ref = ("phase 13 (one rank, with per-request overrides): "
+               f"{single['tok_s']:.1f} tok/s client side, engine "
+               f"{single['decode_tok_per_s']:.1f}, p50_ttft_s "
+               f"{single['p50_ttft_s']:.4f}" if single else
+               "phase 13 did not run")
+        log(f"  {what}: int8 headline served (warmup on every rank, 8 "
+            f"concurrent HTTP requests of 128 + 128): {n_tok} tokens in "
+            f"{lead['wall_s']:.3f} s = {n_tok / lead['wall_s']:.1f} tok/s "
+            f"client side, engine decode_tok_per_s "
+            f"{st['decode_tok_per_s']:.1f}, p50_ttft_s "
+            f"{st['p50_ttft_s']:.4f} (queue included); {ref} [{card}]")
+        log(f"  {what}: int8 parts launches a rank {launches} = L x "
+            f"{steps[0]} chained decode steps, single steps 0; serving "
+            f"broadcasts {[r['live']['broadcasts'] for r in res]} a rank, "
+            f"median {bcast:.3f} host ms on the leader, "
+            f"{100 * bcast / link_ms:.2f} % of a decode link's "
+            f"{link_ms:.2f} host ms (16 steps at {host_ms_step(st):.2f}); "
+            f"rank start {t_start:.1f} s [{card}]")
+
+
+def tp_cli_serve(torch, cfg, card):
+    """Leg (b)'s CLI: ``--serve PORT --mesh-model 2 --warmup`` under
+    torchrun over NCCL (fp32, greedy) on a checkpoint of phase 17's
+    weights; two concurrent POSTs beside the in-process single-rank
+    CLI's tokens for the same prompts (fp32 TP sums in another order, so
+    the first 8 tokens must agree and the rest is counted); SIGINT to
+    torchrun stops every process within 30 s."""
+    import signal
+    import socket
+
+    import numpy as np
+
+    from llmc_paged_tpu_torch import formats
+    from llmc_paged_tpu_torch.engine import cli
+    from llmc_paged_tpu_torch.models import gpt2
+    from llmc_paged_tpu_torch.parallel.mp_dryrun import http_post
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(PAR_SEED),
+                              device="cpu")
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        ckpt, data = (os.path.join(d, n) for n in ("gpt2_124M.bin",
+                                                   "tokens.bin"))
+        formats.write_checkpoint(ckpt, cfg, {k: v.numpy()
+                                             for k, v in params.items()})
+        formats.write_token_stream(data, np.random.default_rng(PAR_SEED)
+                                   .integers(0, cfg.vocab_size, 4096)
+                                   .astype(np.int32))
+        argv = [f"--checkpoint={ckpt}", f"--data={data}", "--greedy",
+                "--batch=2", "--page-size=128", "--num-pages=8",
+                "--pages-per-seq=2"]
+        want = run_cli(cli, argv + ["--prompt-size=64",
+                                    "--max-new=32"])["tokens"]
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        out, err = os.path.join(d, "out.txt"), os.path.join(d, "err.txt")
+        t0 = time.monotonic()
+        with open(out, "w") as fo, open(err, "w") as fe:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", "2", "-m",
+                 "llmc_paged_tpu_torch.engine.cli"] + argv
+                + [f"--serve={port}", "--mesh-model=2", "--warmup"],
+                stdout=fo, stderr=fe, cwd=d,
+                env=dict(os.environ, PYTHONPATH=HERE))
+        try:
+            while "serving on" not in open(out).read():
+                check(proc.poll() is None and time.monotonic() - t0 < 300,
+                      "cli --serve --mesh-model 2: no serving line: "
+                      + open(err).read()[-3000:])
+                time.sleep(0.2)
+            t_up = time.monotonic() - t0
+            rids = sorted(want)
+            replies = concurrently(lambda rid: http_post(
+                f"http://127.0.0.1:{port}/generate",
+                dict(prompt=want[rid][:64], max_new_tokens=32)), rids)
+            agree = 0
+            for rid, (status, reply, _) in zip(rids, replies):
+                got = reply.get("tokens", [])
+                check(status == 200 and len(got) == 96
+                      and got[:72] == want[rid][:72],
+                      f"cli --serve --mesh-model 2: request {rid} {status}: "
+                      f"{got[64:72]} vs one rank's {want[rid][64:72]}")
+                agree += got == want[rid]
+            t1 = time.monotonic()
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=30)
+            t_stop = time.monotonic() - t1
+            check("forcefully" not in open(err).read(),
+                  "cli --serve --mesh-model 2: torchrun killed a rank")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"  (b) the CLI --serve --mesh-model 2 --warmup under torchrun over "
+        f"NCCL (fp32, greedy): up in {t_up:.1f} s; 2 concurrent POSTs of "
+        f"64 + 32 tokens: {agree}/2 equal to one rank's CLI, all agree on "
+        f"the first 8; SIGINT to torchrun: every process gone in "
+        f"{t_stop:.1f} s [{card}]")
+
+
 # ---- phase 11: the kernel lab ------------------------------------------------
 
 # timed calls a run of the lab's sweeps (their default is 50)
@@ -3021,8 +3212,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the torch port "
                                              "on the card (module docstring)")
     ap.add_argument("--parallel-only", action="store_true",
-                    help="phases 1, 2 and 17 alone (e.g. on four cards, "
-                         "where phase 17 adds its NCCL leg)")
+                    help="phases 1, 2, 17 and 18 alone (e.g. on four "
+                         "cards, where both add their NCCL legs)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3065,6 +3256,8 @@ def main(argv=None) -> int:
         phase("phase 17: tensor and data parallelism (parallel/), GPT-2 124M "
               "at full width over rank processes")
         phase_parallel(torch, pa, card)
+        phase(PHASE_18)
+        phase_tp_serving(torch, card)
         phase("done")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -3368,7 +3561,8 @@ def main(argv=None) -> int:
     # 13. the serving front, before any phase that starts torch.profiler
     phase("phase 13: the serving front (ServingEngine + HTTP) under device "
           "sampling, fp32 parity engine and int8 headline engine")
-    phase_serving(torch, pa, params32, cfg, device, greedy_host_ms)
+    served13 = phase_serving(torch, pa, params32, cfg, device,
+                             greedy_host_ms)
 
     # 14. the long-prompt prefill, also before any torch.profiler trace
     phase(f"phase 14: the long-prompt bf16 prefill through the flash "
@@ -3390,6 +3584,10 @@ def main(argv=None) -> int:
     phase("phase 17: tensor and data parallelism (parallel/), GPT-2 124M at "
           "full width over rank processes")
     phase_parallel(torch, pa, card)
+
+    # 18. the serving front over TP ranks, host-timed, so before any trace
+    phase(PHASE_18)
+    phase_tp_serving(torch, card, served13)
 
     # 11. the kernel lab (its main path: the sweeps), then its kernels
     # timed

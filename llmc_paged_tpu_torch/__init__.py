@@ -41,16 +41,3 @@ def platform_device():
                          "'cpu' (unset: the card)")
     return "cpu"
 
-
-# The ROADMAP.md heading and bold item that the "not ported yet" errors
-# name; both must appear there verbatim.
-ROADMAP_HEADING = "Modules still to port"
-TP_SERVING = "The serving front over tensor-parallel ranks"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for an option that is not in the port yet, naming the
-    ROADMAP item that would serve it."""
-    return NotImplementedError(
-        f"{what} is not in the torch port yet (ROADMAP.md, "
-        f"'{ROADMAP_HEADING}': {item})")

@@ -17,7 +17,8 @@ Serving over HTTP instead (concurrent connections batch continuously):
 It runs on the card. ``LLMC_PLATFORM=cpu`` selects the CPU (the plain
 PyTorch versions of the kernels); any other value raises. ``--profile
 DIR`` writes a torch.profiler Chrome trace of the run to
-DIR/trace.json.
+DIR/trace.json (under ``--mesh-model``, rank r > 0 to
+DIR/trace_rank{r}.json).
 
 Tensor parallelism over N ranks (``--mesh-model N``): one process a rank
 under torchrun, each on its card (``cuda:LOCAL_RANK``, NCCL) or, with
@@ -25,8 +26,10 @@ under torchrun, each on its card (``cuda:LOCAL_RANK``, NCCL) or, with
 schedule and only rank 0 prints:
     torchrun --nproc-per-node 2 -m llmc_paged_tpu_torch.engine.cli \
         --checkpoint model.bin --data tokens.bin --batch 8 --mesh-model 2
-A plain start with N > 1 exits naming that command; ``--serve`` over TP
-ranks is not in the port yet (ServingEngine raises).
+With ``--serve PORT`` every rank serves (with ``--warmup``, each warms
+up first): rank 0 binds the port and answers, the others follow it
+(engine/http_server.py); stopping torchrun (SIGINT or SIGTERM) stops
+every rank. A plain start with N > 1 exits naming the torchrun command.
 """
 
 from __future__ import annotations
@@ -130,7 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run (CPU, and "
                         "CUDA on the card) to DIR/trace.json, a Chrome "
-                        "trace (chrome://tracing, Perfetto)")
+                        "trace (chrome://tracing, Perfetto); under "
+                        "--mesh-model, rank r > 0 writes "
+                        "DIR/trace_rank{r}.json")
     return p
 
 
@@ -147,12 +152,14 @@ def start_profile(device):
     return prof
 
 
-def stop_profile(prof, out_dir: str) -> str:
-    """Stop ``prof`` and write its Chrome trace to out_dir/trace.json;
-    returns the path."""
+def stop_profile(prof, out_dir: str, rank: int = 0) -> str:
+    """Stop ``prof`` and write its Chrome trace to out_dir/trace.json
+    (rank r > 0 of a mesh: out_dir/trace_rank{r}.json); returns the
+    path."""
     prof.stop()
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "trace.json")
+    path = os.path.join(out_dir, "trace.json" if rank == 0
+                        else f"trace_rank{rank}.json")
     prof.export_chrome_trace(path)
     return path
 
@@ -191,9 +198,10 @@ def main(argv=None) -> int:
 
     if args.serve:
         from llmc_paged_tpu_torch.engine.http_server import serve_http
-        if args.warmup:
+        if args.warmup:             # on every rank: its collectives pair
             t = engine.warmup(window=args.window)
-            print(f"warmup: {t}", flush=True)
+            if rank == 0:
+                print(f"warmup: {t}", flush=True)
         serve_http(engine, port=args.serve, tokenizer=tok,
                    max_pending=args.max_pending or None,
                    window=args.window)
@@ -227,7 +235,7 @@ def main(argv=None) -> int:
         # stop even on failure, so a --profile run debugging that very
         # failure still gets its trace
         if prof is not None:
-            stop_profile(prof, args.profile)
+            stop_profile(prof, args.profile, rank)
 
     if rank != 0:
         return 0            # every rank holds the same tokens

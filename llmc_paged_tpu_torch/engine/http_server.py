@@ -36,12 +36,20 @@ prompts likewise arrive pre-tokenized from the data .bin). `text` in
 responses is decoded when a tokenizer is provided.
 
 CLI: `python -m llmc_paged_tpu_torch.engine.cli ... --serve PORT`.
+
+Over tensor-parallel ranks (an engine with EngineConfig.mesh_shape, one
+process a rank) ``serve_http`` runs on every rank: the leader of each
+model group binds the port and answers clients, the other ranks run the
+follower ServingEngine and block until the leader closes
+(engine/server.py).
 """
 
 from __future__ import annotations
 
 import json
+import signal
 import threading
+from concurrent.futures import CancelledError
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -129,6 +137,10 @@ def make_handler(serving: ServingEngine, tokenizer=None):
             except QueueFull as e:
                 return self._reply(503, {"error": str(e)},
                                    headers={"Retry-After": "1"})
+            except CancelledError:
+                # serve_http cancels what is live when the server stops
+                return self._reply(503, {"error": "cancelled: the server "
+                                                  "is stopping"})
             except (ValueError, RuntimeError) as e:
                 # invalid request (too long for the pool, ...) or loop down
                 return self._reply(400, {"error": str(e)})
@@ -211,15 +223,39 @@ def serve_http(engine, host: str = "127.0.0.1", port: int = 8000,
                tokenizer=None, window: Optional[int] = None,
                max_pending: Optional[int] = None):
     """Blocking entry point (the CLI --serve path): run the engine's
-    serving loop with an HTTP front until interrupted."""
-    serving = ServingEngine(engine, window=window, max_pending=max_pending)
-    front = HttpServingFront(serving, host, port, tokenizer)
-    print(f"serving on http://{front.host}:{front.port} "
-          f"(POST /generate, GET /health)", flush=True)
+    serving loop with an HTTP front until interrupted (SIGINT, or SIGTERM
+    when called from the main thread). On the way out the live requests
+    are cancelled and the loop ends on every rank. Under TP, call it on
+    every rank: only a leader binds the port; a follower returns when its
+    leader closes."""
+    term = None
+    if threading.current_thread() is threading.main_thread():
+        term = signal.signal(signal.SIGTERM, signal.default_int_handler)
     try:
-        serving._thread.join()              # until interrupted
-    except KeyboardInterrupt:
-        pass
+        serving = ServingEngine(engine, window=window,
+                                max_pending=max_pending)
+        if not serving.is_leader:
+            try:
+                serving.close()             # until the leader closes
+            except KeyboardInterrupt:
+                serving.close()             # which its own signal makes it
+            if serving._error is not None:  # the leader is gone
+                raise RuntimeError("the serving loop ended on an error"
+                                   ) from serving._error
+            return
+        front = None
+        try:
+            front = HttpServingFront(serving, host, port, tokenizer)
+            print(f"serving on http://{front.host}:{front.port} "
+                  f"(POST /generate, GET /health)", flush=True)
+            serving._done.wait()            # until interrupted
+        except KeyboardInterrupt:
+            pass
+        finally:
+            if front is not None:
+                front.close()
+            serving.cancel_all()
+            serving.close()
     finally:
-        front.close()
-        serving.close(wait=False)
+        if term is not None:
+            signal.signal(signal.SIGTERM, term)

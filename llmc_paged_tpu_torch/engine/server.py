@@ -19,6 +19,26 @@ queues); every CUDA tensor lives on the serving thread, which makes the
 engine's device current before its first launch (a new thread's current
 device is index 0).
 
+Tensor parallelism (an engine with EngineConfig.mesh_shape): each rank
+of a model group runs its own engine loop (parallel/sharding.py) and
+must take every host decision as the others do, or the next collective
+hangs; a serving loop takes its decisions from client threads, which
+exist on the group's leader (``mesh.leader``, model rank 0) only. So a
+ServingEngine is built on every rank of the mesh, in the same order on
+each (the ranks' fronts pair up by order on ``mesh.host_group``).
+Clients submit, stream and cancel on the leader; there ``cancel`` only
+records the rid. The leader's feed drains its queue and broadcasts one
+message over the host group: the new requests as plain fields
+(``WIRE_FIELDS``), the rids cancelled since the last poll, and whether
+the feed is still open (it stays open while requests live, so a cancel
+during close's drain still reaches every rank). Every rank's feed, the
+leader's included, builds or keeps its requests and sets ``cancelled``
+on its own request objects inside the feed call, so the engine's checks
+right after each poll see the same flags on every rank. Invariant: ONE
+broadcast for each feed call, on every rank. On a follower, submit,
+submit_stream and cancel raise, naming the leader; ``close()`` waits for
+the loop, which ends when the leader's message says closed.
+
 Usage:
     srv = ServingEngine(engine)           # spawns the serving thread
     fut = srv.submit([1, 2, 3], max_new_tokens=32)   # any thread
@@ -31,6 +51,7 @@ L4 capability a production deployment needs on top of them.
 
 from __future__ import annotations
 
+import collections
 import itertools
 import queue
 import threading
@@ -38,13 +59,23 @@ import time
 from concurrent.futures import CancelledError, Future
 from typing import List, Optional, Sequence
 
-from llmc_paged_tpu_torch import TP_SERVING, not_ported
+import numpy as np
+import torch
+import torch.distributed as dist
+
 from llmc_paged_tpu_torch.engine.scheduler import Request
 from llmc_paged_tpu_torch.sampler import Sampler
 
 # how long the feed blocks waiting for work when the engine is idle; a
 # wake also happens immediately on close()
 _IDLE_POLL_S = 0.02
+
+# the Request fields the engine reads, sent from a leader to its
+# followers (t_submit stays on the leader's clock)
+WIRE_FIELDS = ("rid", "prompt", "max_new_tokens", "stream", "stop_tokens",
+               "temperature", "top_k", "greedy", "priority", "logprobs",
+               "prompt_logprobs", "frequency_penalty", "presence_penalty",
+               "cancelled")
 
 
 class QueueFull(RuntimeError):
@@ -84,12 +115,20 @@ class ServingEngine:
     def __init__(self, engine, window: Optional[int] = None,
                  sampler: Optional[Sampler] = None,
                  max_pending: Optional[int] = None):
-        if getattr(engine, "mesh", None) is not None:
-            # every rank would need rank 0's queue, arrivals and cancels
-            # broadcast at each scheduler iteration
-            raise not_ported("ServingEngine over a tensor-parallel engine "
-                             "(EngineConfig.mesh_shape)", TP_SERVING)
         self._engine = engine
+        # the device the engine runs on, with its index: a bare "cuda" is
+        # the current card of the thread that builds the front
+        dev = engine.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._device = dev
+        # under TP: the mesh, and the rids cancelled since the last poll
+        self._mesh = getattr(engine, "mesh", None)
+        self.is_leader = self._mesh is None or self._mesh.model_rank == 0
+        self._cancels: List[int] = []
+        self.broadcasts = 0                # the feed's broadcasts so far
+        self._bcast_ms: "collections.deque" = collections.deque(
+            maxlen=4096)                   # host ms of the latest ones
         self._window = window
         self._sampler = sampler
         self._max_pending = max_pending
@@ -101,6 +140,10 @@ class ServingEngine:
         self._open = True
         self._rid = itertools.count()
         self._error: Optional[BaseException] = None
+        # set when the loop has ended: close() waits on it, not on
+        # Thread.join, which a KeyboardInterrupt leaves marking a running
+        # thread as stopped
+        self._done = threading.Event()
         self._thread = threading.Thread(target=self._loop,
                                         name="llmc-serving", daemon=True)
         self._thread.start()
@@ -123,6 +166,7 @@ class ServingEngine:
         here, at submission, never the serving loop. temperature/top_k/
         greedy override the engine sampler for THIS request (None keeps
         the engine default)."""
+        self._check_leader("submit")
         with self._lock:
             if not self._open:
                 raise RuntimeError("ServingEngine is closed")
@@ -175,6 +219,7 @@ class ServingEngine:
         BATCHES (lists) as the engine materializes them — granularity is
         decode-chain links, bounded by EngineConfig.stream_links while any
         stream runs. Invalid requests raise here, synchronously."""
+        self._check_leader("submit_stream")
         with self._lock:
             if not self._open:
                 raise RuntimeError("ServingEngine is closed")
@@ -212,34 +257,61 @@ class ServingEngine:
         request: its Future raises CancelledError; its stream ends (tokens
         already streamed stay delivered). Returns False when the request
         already finished (its result stands) or is unknown. Racing a
-        natural finish is benign — one of the two outcomes lands."""
+        natural finish is benign — one of the two outcomes lands. Under
+        TP the rid is recorded and every rank sets the flag at the next
+        poll (module docstring)."""
+        self._check_leader("cancel")
         with self._lock:
             req = self._requests.get(rid)
             if req is None:
                 return False
-            req.cancelled = True
+            if self._mesh is None:
+                req.cancelled = True
+            else:
+                self._cancels.append(rid)
         return True
+
+    def cancel_all(self) -> int:
+        """Cancel every live request (a server that stops); returns how
+        many."""
+        with self._lock:
+            rids = list(self._requests)
+        return sum(self.cancel(rid) for rid in rids)
+
+    def _check_leader(self, what: str) -> None:
+        if not self.is_leader:
+            raise RuntimeError(
+                f"{what} on rank {self._mesh.rank}: this ServingEngine "
+                f"follows rank {self._mesh.leader}, the leader of its "
+                "model group, which alone takes requests")
 
     def stats(self) -> dict:
         """Live serving snapshot: the engine's per-iteration counters
         (running/waiting/finished, decode tok/s, pages free, preemptions,
         uptime) plus this front's pending request count. Safe from any
-        thread — the engine swaps the whole dict atomically."""
+        thread — the engine swaps the whole dict atomically. Under TP
+        also the feed's broadcasts and the median host ms of the latest
+        4096."""
         out = dict(self._engine.live_stats)
         with self._lock:
             out["pending_futures"] = len(self._futures)
             out["open_streams"] = len(self._streams)
+            if self._mesh is not None:
+                out["broadcasts"] = self.broadcasts
+                out["broadcast_ms_p50"] = (float(np.median(self._bcast_ms))
+                                           if self._bcast_ms else 0.0)
         return out
 
     def close(self, wait: bool = True) -> None:
         """Stop accepting requests; the loop drains everything already
-        submitted, then exits."""
+        submitted, then exits. On a follower: wait for the loop, which
+        ends when the leader closes."""
         with self._lock:
-            if not self._open:
-                return
-            self._open = False
-        self._q.put(None)                      # wake an idle feed
-        if wait:
+            first, self._open = self._open, False
+        if first and self.is_leader:
+            self._q.put(None)                  # wake an idle feed
+        if wait and (first or not self.is_leader):
+            self._done.wait()
             self._thread.join()
 
     def __enter__(self):
@@ -250,7 +322,7 @@ class ServingEngine:
 
     # ---- engine side (serving thread) -----------------------------------
 
-    def _feed(self, block: bool):
+    def _drain(self, block: bool) -> List[Request]:
         out: List[Request] = []
         try:
             while True:
@@ -261,8 +333,41 @@ class ServingEngine:
                 block = False                  # drain the rest non-blocking
         except queue.Empty:
             pass
+        return out
+
+    def _feed(self, block: bool):
+        if self._mesh is None:
+            out = self._drain(block)
+            with self._lock:
+                still_open = self._open or not self._q.empty() or bool(out)
+            return out, still_open
+        box = [None]
+        if self.is_leader:
+            out = self._drain(block)
+            # submit and cancel hold the lock, so every rid cancelled by
+            # now names a request in this drain or an earlier one
+            with self._lock:
+                out += self._drain(False)
+                cancels, self._cancels = self._cancels, []
+                still_open = self._open or bool(self._requests)
+            box[0] = ([{k: getattr(r, k) for k in WIRE_FIELDS}
+                       for r in out], cancels, still_open)
+        t0 = time.perf_counter()
+        dist.broadcast_object_list(box, src=self._mesh.leader,
+                                   group=self._mesh.host_group)
+        ms = 1e3 * (time.perf_counter() - t0)
+        fields, cancels, still_open = box[0]
+        if not self.is_leader:
+            out = [Request(**f) for f in fields]
         with self._lock:
-            still_open = self._open or not self._q.empty() or bool(out)
+            self.broadcasts += 1
+            self._bcast_ms.append(ms)
+            for r in out:
+                self._requests[r.rid] = r
+            for rid in cancels:
+                req = self._requests.get(rid)
+                if req is not None:
+                    req.cancelled = True
         return out, still_open
 
     def _on_tokens(self, req: Request, new_tokens) -> None:
@@ -285,11 +390,8 @@ class ServingEngine:
 
     def _loop(self) -> None:
         try:
-            # the device (with its index) that the engine's weights are on
-            dev = self._engine.params["wpe"].device
-            if dev.type == "cuda":
-                import torch
-                torch.cuda.set_device(dev)
+            if self._device.type == "cuda":
+                torch.cuda.set_device(self._device)
             self._engine.run([], window=self._window, sampler=self._sampler,
                              feed=self._feed, on_finish=self._on_finish,
                              on_tokens=self._on_tokens)
@@ -306,3 +408,5 @@ class ServingEngine:
                 fut.set_exception(e)
             for sq in streams:
                 sq.put(e)
+        finally:
+            self._done.set()

@@ -349,6 +349,228 @@ def engine_run(params, cfg, econf, requests, runs: int = 1, window=None,
     return out
 
 
+# ---- serving over TP ranks ---------------------------------------------------
+
+def http_post(url: str, payload: dict, timeout: float = 300.0):
+    """POST ``payload`` as JSON; (status, reply, seconds)."""
+    import json
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST")
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.monotonic() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.monotonic() - t0
+
+
+def http_stream(url: str, payload: dict, timeout: float = 300.0):
+    """POST a streaming request and read it to its end; (the streamed
+    tokens, seconds to the first token line, the final line)."""
+    import json
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps(dict(payload, stream=True)).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.monotonic()
+    toks, t_first, final = [], None, None
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            obj = json.loads(line)
+            if obj.get("done"):
+                final = obj
+            else:
+                toks.extend(obj["tokens"])
+                if t_first is None:
+                    t_first = time.monotonic() - t0
+    return toks, t_first, final
+
+
+def http_disconnect(host: str, port: int, payload: dict, lines: int = 2):
+    """POST a streaming request over a raw socket, read its first
+    ``lines`` token lines (the first holds only the prefill's pick) and
+    close the connection, which cancels the request; their tokens."""
+    import json
+    import socket
+    body = json.dumps(dict(payload, stream=True)).encode()
+    s = socket.create_connection((host, port), timeout=120)
+    try:
+        s.sendall(b"POST /generate HTTP/1.1\r\nHost: ranks\r\n"
+                  b"Content-Type: application/json\r\n"
+                  + f"Content-Length: {len(body)}\r\n\r\n".encode()
+                  + body)
+        buf = b""
+        while buf.partition(b"\r\n\r\n")[2].count(b"\n") < lines:
+            chunk = s.recv(65536)
+            if not chunk:
+                raise RuntimeError(f"the stream closed before {lines} "
+                                   "lines")
+            buf += chunk
+    finally:
+        s.close()
+    got = buf.partition(b"\r\n\r\n")[2].split(b"\n")[:lines]
+    return [t for ln in got for t in json.loads(ln)["tokens"]]
+
+
+def serve_run(params, cfg, econf, requests, client: str = "submit",
+              gap_s: float = 0.0, cancel_running=None, cancel_queued=None,
+              bad=(), batch: bool = True, warmup: bool = False):
+    """A ServingEngine over this rank's engine (every rank builds one; a
+    model group's leader takes the requests). ``requests``: Request
+    keyword dicts. First, with ``batch``, the engine's ``run()`` of the
+    same requests on every rank; with ``warmup``, ``warmup()``. Then the
+    leader starts one client thread a request, ``gap_s`` apart, each
+    through ``client``:
+
+    - "submit": ``submit`` and the future's result;
+    - "stream": ``submit_stream``, its batches concatenated;
+    - "http": a POST to an HttpServingFront on the leader (127.0.0.1).
+
+    The request ``cancel_running`` is streamed and cancelled after its
+    first batch: under "submit" or "stream" the engine waits in that
+    flush until the client has cancelled (so the cancel lands at the
+    next poll), under "http" the client disconnects after two lines. The
+    request ``cancel_queued`` ("submit") is cancelled right after its
+    submission. ``bad`` ("http"): more payloads, whose statuses are
+    returned. A follower records the error of its own ``submit``. Then
+    ``close()`` on every rank.
+
+    Returns a dict: ``leader``; ``batch`` {rid: tokens}; ``served`` {rid:
+    {tokens, cancelled}} (the leader's clients; tokens None for a
+    cancelled future); ``bad``; ``follower_error``; ``finished`` {rid:
+    [tokens, cancelled]} as the serving loop finished them on this rank
+    (the HTTP front numbers its requests itself); ``live`` (the front's
+    ``stats()`` after the drain), ``stats`` (the engine's), ``launches``
+    and ``collectives`` of the served run; ``alive`` (the loop after
+    close); ``wall_s`` of the clients."""
+    import threading
+    from concurrent.futures import CancelledError
+
+    from llmc_paged_tpu_torch.engine.engine import InferenceEngine
+    from llmc_paged_tpu_torch.engine.http_server import HttpServingFront
+    from llmc_paged_tpu_torch.engine.scheduler import Request
+    from llmc_paged_tpu_torch.engine.server import ServingEngine
+    from llmc_paged_tpu_torch.ops import paged_attention as pa
+    from llmc_paged_tpu_torch.parallel import sharding as sh
+    eng = InferenceEngine(_params(params, cfg), cfg, econf,
+                          device=rank_device())
+    out = {"batch": None, "served": {}, "bad": [], "follower_error": None}
+    if batch:
+        done = eng.run([Request(**r) for r in requests])
+        out["batch"] = {r.rid: list(r.tokens) for r in done}
+    if warmup:
+        eng.warmup()
+    for counts in (sh.COLLECTIVES, pa.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    resume = threading.Event()
+
+    class Recording(ServingEngine):
+        """Records what the loop finishes; on the leader, holds the flush
+        of ``cancel_running``'s first batch until its client cancelled."""
+
+        def __init__(self, *args, **kwargs):
+            self.finished = {}         # before the loop starts
+            super().__init__(*args, **kwargs)
+
+        def _on_tokens(self, req, new_tokens):
+            super()._on_tokens(req, new_tokens)
+            if (req.rid == cancel_running and self.is_leader
+                    and client != "http"):
+                resume.wait(60)
+
+        def _on_finish(self, req):
+            self.finished[req.rid] = [list(req.tokens), req.cancelled]
+            super()._on_finish(req)
+
+    srv = Recording(eng)
+    out["leader"] = srv.is_leader
+    front = None
+    if srv.is_leader and client == "http":
+        front = HttpServingFront(srv, "127.0.0.1", 0)
+    url = front and f"http://{front.host}:{front.port}/generate"
+    fields = ("max_new_tokens", "stop_tokens", "temperature", "top_k",
+              "greedy", "priority", "logprobs", "prompt_logprobs",
+              "frequency_penalty", "presence_penalty")
+
+    def one(r):
+        kw = {k: v for k, v in r.items() if k in fields}
+        rid, prompt = r["rid"], list(r["prompt"])
+        res = {"cancelled": False}
+        if client == "http":
+            payload = dict(kw, prompt=prompt)
+            if rid == cancel_running:
+                got = http_disconnect(front.host, front.port, payload)
+                res.update(tokens=prompt + got, cancelled=True)
+            elif r.get("stream"):
+                res["tokens"] = prompt + http_stream(url, payload)[0]
+            else:
+                status, reply, _ = http_post(url, payload)
+                if status != 200:
+                    raise RuntimeError(f"request {rid}: HTTP {status} "
+                                       f"{reply}")
+                res["tokens"] = reply["tokens"]
+        elif client == "stream" or rid == cancel_running:
+            it = srv.submit_stream(prompt, rid=rid, **kw)
+            got = []
+            for part in it:
+                got.extend(part)
+                if rid == cancel_running and not res["cancelled"]:
+                    res["cancelled"] = it.cancel()
+                    resume.set()
+            res["tokens"] = prompt + got
+        else:
+            fut = srv.submit(prompt, rid=rid, **kw)
+            if rid == cancel_queued:
+                srv.cancel(rid)
+            try:
+                res["tokens"] = fut.result(timeout=600)
+            except CancelledError:
+                res.update(tokens=None, cancelled=True)
+        out["served"][rid] = res
+
+    errors = []
+
+    def guarded(r):
+        try:
+            one(r)
+        except BaseException as e:     # re-raised below, after close
+            errors.append(e)
+
+    t0 = time.monotonic()
+    if srv.is_leader:
+        threads = []
+        for i, r in enumerate(requests):
+            if i and gap_s:
+                time.sleep(gap_s)
+            threads.append(threading.Thread(target=guarded, args=(r,)))
+            threads[-1].start()
+        for t in threads:
+            t.join()
+        out["bad"] = [http_post(url, payload)[0] for payload in bad]
+    else:
+        try:
+            srv.submit(list(requests[0]["prompt"]), 1)
+        except RuntimeError as e:
+            out["follower_error"] = str(e)
+    out["wall_s"] = time.monotonic() - t0
+    if front is not None:
+        front.close()
+    srv.close()
+    if errors:
+        raise errors[0]
+    if srv._error is not None:
+        raise RuntimeError("the serving loop died") from srv._error
+    out.update(finished=srv.finished, live=srv.stats(),
+               stats=dict(eng.stats), launches=dict(pa.LAUNCHES),
+               collectives=dict(sh.COLLECTIVES),
+               alive=srv._thread.is_alive())
+    return out
+
+
 def step_logits(params, cfg, page, prompts, data: int = 1,
                 param_dtype="float32", kv_dtype="float32"):
     """TP prefill of tokens [0, T-1) of ``prompts`` (a (B, T) int array)

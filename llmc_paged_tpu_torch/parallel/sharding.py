@@ -61,6 +61,11 @@ from llmc_paged_tpu_torch.ops.int8 import (
 # callers, like the kernels' LAUNCHES)
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
 
+# the timeout of a host group's collectives: a serving leader whose
+# follower died fails its requests after this long instead of waiting
+# for ever; an idle leader broadcasts every 20 ms, far inside it
+HOST_TIMEOUT_S = 120.0
+
 
 def require_group(what: str, ranks: int) -> None:
     """Raise, naming torchrun and init_distributed, unless this process
@@ -131,11 +136,15 @@ class Mesh:
     """The (data, model) grid of global ranks, laid out as the JAX
     package's ``make_mesh`` lays out devices (:83), with this rank's place
     in it and the process group of its row (``model_group``, the TP axis)
-    and of its column (``data_group``, the DP axis). A mesh from
-    ``Mesh.local`` has no groups: it serves the layout functions, and a
-    collective over more than one rank raises."""
+    and of its column (``data_group``, the DP axis). ``host_group`` is a
+    gloo group of the row's ranks, for host messages (the serving
+    front's broadcasts; under NCCL the model group's would need device
+    tensors), and ``leader`` the row's rank with model_rank 0. A mesh
+    from ``Mesh.local`` has no groups: it serves the layout functions,
+    and a collective over more than one rank raises."""
 
-    def __init__(self, grid, rank: int, model_group=None, data_group=None):
+    def __init__(self, grid, rank: int, model_group=None, data_group=None,
+                 host_group=None):
         self.grid = np.asarray(grid)
         self.data_size, self.model_size = self.grid.shape
         where = np.argwhere(self.grid == rank)
@@ -145,6 +154,8 @@ class Mesh:
         self.data_rank, self.model_rank = (int(i) for i in where[0])
         self.model_group = model_group
         self.data_group = data_group
+        self.host_group = host_group
+        self.leader = int(self.grid[self.data_rank, 0])
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -168,7 +179,9 @@ def make_mesh(model: int = 1, data: int = 1) -> Mesh:
     """The mesh of ``data`` x ``model`` ranks over the default process
     group, which must have exactly that many ranks. Every rank creates
     every group, in the same order (a rank that skipped one would hang
-    the next collective), and a mesh is built once a group."""
+    the next collective): each row's model group and its gloo host group
+    (``HOST_TIMEOUT_S``), then each column's data group. A mesh is built
+    once a group."""
     require_group(f"a mesh of data={data} x model={model}", model * data)
     world = dist.group.WORLD
     hit = _MESHES.get((model, data))
@@ -176,16 +189,19 @@ def make_mesh(model: int = 1, data: int = 1) -> Mesh:
         return hit
     grid = np.arange(model * data).reshape(data, model)
     rank = dist.get_rank()
-    model_group = data_group = None
+    model_group = data_group = host_group = None
+    host_timeout = datetime.timedelta(seconds=HOST_TIMEOUT_S)
     for row in grid:
         g = dist.new_group(row.tolist())
+        h = dist.new_group(row.tolist(), timeout=host_timeout,
+                           backend="gloo")
         if rank in row:
-            model_group = g
+            model_group, host_group = g, h
     for col in grid.T:
         g = dist.new_group(col.tolist())
         if rank in col:
             data_group = g
-    mesh = Mesh(grid, rank, model_group, data_group)
+    mesh = Mesh(grid, rank, model_group, data_group, host_group)
     mesh.world = world
     _MESHES[(model, data)] = mesh
     return mesh

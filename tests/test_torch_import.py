@@ -150,15 +150,18 @@ def one_rank(tmp_path):
 def _parallel_message(where, capsys, request):
     """The error of a parallel option outside a process group of its size:
     the engine (mesh_shape), the serving CLI (--mesh-model), train()
-    (data_parallel), the train CLI (--data-parallel); and the "not ported
-    yet" error of the serving front over a tensor-parallel engine (built
-    in a group of one rank)."""
+    (data_parallel), the train CLI (--data-parallel). For "serving", the
+    serving front over a tensor-parallel engine built in a group of one
+    rank: None, after checking that it serves a request equal to that
+    engine's run()."""
     import dataclasses
 
     from llmc_paged_tpu_torch import train
-    from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config
+    from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config, \
+        PageConfig
     from llmc_paged_tpu_torch.engine import cli
     from llmc_paged_tpu_torch.engine.engine import InferenceEngine
+    from llmc_paged_tpu_torch.engine.scheduler import Request
     from llmc_paged_tpu_torch.engine.server import ServingEngine
     from llmc_paged_tpu_torch.models import gpt2
     cfg = GPT2Config.tiny()
@@ -176,14 +179,22 @@ def _parallel_message(where, capsys, request):
 
     def engine(model):
         return InferenceEngine(params, cfg, dataclasses.replace(
-            EngineConfig(greedy=True), mesh_shape={"model": model}),
-            device="cpu")
+            EngineConfig(greedy=True, page=PageConfig(page_size=8,
+                                                      pages_per_seq=4)),
+            mesh_shape={"model": model}), device="cpu")
 
     if where == "serving":
         request.getfixturevalue("one_rank")
-        with pytest.raises(NotImplementedError) as exc:
-            ServingEngine(engine(1))
-        return str(exc.value)
+        eng = engine(1)
+        prompt = [3, 1, 4, 1, 5]
+        want = eng.run([Request(rid=0, prompt=prompt, max_new_tokens=6)])
+        with ServingEngine(eng) as srv:
+            assert srv.is_leader
+            got = srv.submit(prompt, 6).result(timeout=120)
+            stats = srv.stats()
+        assert got == want[0].tokens and len(got) == len(prompt) + 6
+        assert stats["broadcasts"] >= 2 and stats["finished_total"] == 1
+        return None
     with pytest.raises(RuntimeError) as exc:
         if where == "engine":
             engine(2)
@@ -197,24 +208,18 @@ def _parallel_message(where, capsys, request):
 def test_not_ported_messages_name_a_roadmap_item(capsys, request, where):
     """Tensor and data parallelism outside a process group of the right
     size: each error names torchrun, and the two Python entry points also
-    init_distributed. The one parallel option not in the port, the
-    serving front over TP ranks, names a ROADMAP.md heading and a bold
-    item under it that appear there verbatim."""
+    init_distributed. Every parallel option is in the port: the serving
+    front over a TP engine serves (no "not ported" error is left, and
+    the package has no helper for one)."""
+    import llmc_paged_tpu_torch
     msg = _parallel_message(where, capsys, request)
-    if where != "serving":
-        assert "torchrun --nproc-per-node 2" in msg, msg
-        if where in ("engine", "train"):
-            assert "init_distributed" in msg, msg
+    if where == "serving":
+        assert msg is None
+        assert not hasattr(llmc_paged_tpu_torch, "not_ported")
         return
-    m = re.search(r"\(ROADMAP\.md, '([^']+)': ([^)]+)\)$", msg)
-    assert m, msg
-    heading, item = m.groups()
-    assert item == "The serving front over tensor-parallel ranks"
-    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
-        roadmap = f.read()
-    at = roadmap.find(f"### 1. {heading}")
-    assert at >= 0, heading
-    assert f"**{item}" in roadmap[at:roadmap.find("\n### ", at + 1)], item
+    assert "torchrun --nproc-per-node 2" in msg, msg
+    if where in ("engine", "train"):
+        assert "init_distributed" in msg, msg
 
 
 def test_options_outside_the_slice_raise(one_rank):
