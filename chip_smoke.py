@@ -214,6 +214,27 @@ Phases (any failed check raises, and the script exits non-zero):
      rank, the serving broadcasts' count, median host ms on the leader
      and share of a decode link's host ms. ``--parallel-only`` runs
      phases 1, 2, 17 and 18 alone.
+ 19. (run after phase 18, before phases 11 and 12, so that no host-timed
+     phase follows a profiler session) the long-context engines
+     (ops/dev/probe_longctx.py, probe_longrange.py) on one fp32 GPT-2
+     1558M set (seeded random weights): long_ctx_engine at its defaults
+     (int8 weights and KV, bf16 activations and prefill copy, ps 128,
+     pps 9, chunks of 32, greedy; 8 x (896 + 128)), a warm run of 4
+     tokens and two runs, the probe printing each run's full stats and
+     t_* buckets: every row finishes, flash launches = L x prefill waves,
+     int8 parts launches = L x chained steps (no single step) in each run,
+     the device ms of each prefill wave; then probe_longrange's B=32 run
+     (32 x (128 + 64), chunks of 32, int8; one warm-up, two runs): 32 rows
+     of 64 tokens, tok/s, p50 TTFT.
+ 20. (run after phase 12) the long-context chunk cells, profiled as phase
+     12's chunk suite: probe_longctx.main --skip-engine (GPT-2 124M int8
+     decode chunk, prompt 128 and 896 x pool_mult 1, 4 and 16) and
+     probe_longrange.main --skip-b32 (prompt 896: the plain parts path,
+     the ring-depth line, the int8 parts kernel against its plain version
+     at a 1152-page pool at phase 3's tolerance, pool_mult 16): int8 parts
+     launches = L x steps on each kernel cell, 0 on the plain one; host
+     and busy ms a step and idle share a cell, and the slopes in us a step
+     per pool page and per live page.
 Every kernel time is the lab harness's: CUDA events over launches queued
 behind a sleep kernel, the median of 3 runs.
 The line before the last is a JSON object {"kernels": [...]} (fifteen
@@ -2593,6 +2614,126 @@ def tp_cli_serve(torch, cfg, card):
         f"{t_stop:.1f} s [{card}]")
 
 
+# ---- phases 19 and 20: the long-context probes --------------------------------
+
+# the matrix's (prompt, pool_mult) cells, then probe_longrange's plain-parts
+# and pool_mult 16 cells, as (name, prompt, pool_mult)
+LONG_CELLS = ([("int8", p, m) for p in (128, 896) for m in (1, 4, 16)]
+              + [("int8-xlaattn", 896, 1), ("int8", 896, 16)])
+
+
+def phase_long_engines(torch, pa, device, card):
+    """Phase 19: probe_longctx.long_ctx_engine at its defaults, then
+    probe_longrange's B=32 run, on one fp32 GPT-2 1558M set. Checks every
+    run's rows, flash launches = L x prefill waves and int8 parts
+    launches = L x chained steps (the probe counts each run's launches)."""
+    from llmc_paged_tpu_torch.models import gpt2_paged
+    from llmc_paged_tpu_torch.ops.dev import probe_longctx, probe_longrange
+    from llmc_paged_tpu_torch.ops.dev import serving_runs as SR
+    cfg = SR.model_cfg("1558m")
+    L = cfg.num_layers
+    params = SR.device_params(cfg, device)
+    reset_counts(pa)
+    with counting_calls(torch, gpt2_paged, "prefill_paged") as waves:
+        recs = probe_longctx.long_ctx_engine(params=params, device=device)
+    wave_ms = device_ms_of(torch, waves[1])
+    flash = sum(r["launches"].get("causal_attention_flash", 0) for r in recs)
+    check(waves[0] >= len(recs) and flash == L * waves[0],
+          f"long_ctx: {flash} flash launches for {waves[0]} prefill waves "
+          f"(want L x waves, a wave a run at least)")
+    for r in recs:
+        st, n = r["stats"], r["config"][2]
+        parts = r["launches"].get("paged_decode_attention_quant_parts", 0)
+        check(r["generated"] == [n] * 8,
+              f"long_ctx {r['tag']}: rows of {r['generated']} tokens, want "
+              f"8 x {n}")
+        check(parts == L * st["decode_steps"] and st["decode_steps"] > 0
+              and (r["tag"] == "warm" or st["single_steps"] == 0),
+              f"long_ctx {r['tag']}: {r['launches']} launches, "
+              f"{st['single_steps']} single steps, want L x "
+              f"{st['decode_steps']} chained steps")
+        log(f"  long_ctx {r['tag']}: 8 x ({r['config'][1]} + {n}), wall "
+            f"{r['wall_s']:.3f} s, decode_tok_per_s {r['tok_s']:.1f} "
+            f"({r['ms_step']:.2f} ms a step), p50_ttft_s "
+            f"{st['p50_ttft_s']:.4f}, int8 parts launches {parts} = L x "
+            f"{st['decode_steps']} chained steps, flash "
+            f"{r['launches'].get('causal_attention_flash', 0)} [{card}]")
+    log(f"  long_ctx: {waves[0]} prefill waves, flash launches {flash} = L x "
+        "waves; device ms a wave (CUDA events around prefill_paged): "
+        + ", ".join(f"{x:.2f}" for x in wave_ms))
+    reset_counts(pa)
+    rec = probe_longrange.m1558_b32(params=params, device=device)
+    st = rec["stats"]
+    check(rec["batch"] == 32 and rec["new_tokens"] == 64
+          and st["decode_tokens"] == 32 * 63,
+          f"m1558_b32: {rec['batch']} rows, {st['decode_tokens']} decode "
+          "tokens (want 32 rows of 64 tokens: 32 x 63 after the prefill's)")
+    log(f"  m1558_b32: 32 x (128 + 64), chunks of 32, int8: tok/s "
+        f"{rec['tok_s']} (runs {rec['runs']}), p50_ttft_s "
+        f"{rec['p50_ttft_s']}, decode weights "
+        f"{mib(st['param_bytes'])} MiB; launches over its 3 runs "
+        f"{ {k: v for k, v in pa.LAUNCHES.items() if v} } [{card}]")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_long_cells(torch, pa, card):
+    """Phase 20: probe_longctx's chunk matrix and probe_longrange's cells
+    and scale check (their main(), --skip-engine and --skip-b32). Checks
+    the eight cells, int8 parts launches = L x steps on each kernel cell
+    and 0 on the plain-parts cell, and the P=1152 check's record (the
+    check itself raises at phase 3's tolerance). Logs the slopes of a
+    step's busy and host ms against the pool's pages and the live
+    pages."""
+    from llmc_paged_tpu_torch.ops.dev import probe_longctx, probe_longrange
+    from llmc_paged_tpu_torch.ops.dev.serving_runs import model_cfg
+    L = model_cfg("124m").num_layers
+    reset_counts(pa)
+    recs = (probe_longctx.main(["--skip-engine"])
+            + probe_longrange.main(["--skip-b32"]))
+    cells = [r for r in recs if r["suite"] == "chunk"]
+    got = [(r["name"], r["config"][2], r["config"][3]) for r in cells]
+    check(got == LONG_CELLS and all(r["config"][:2] == (8, 128)
+                                    for r in cells),
+          f"long cells: {got}, want {LONG_CELLS} at B=8, ps 128")
+    key = "paged_decode_attention_quant_parts"
+    for r in cells:
+        want = {} if r["name"].endswith("-xlaattn") else {key: L * r["units"]}
+        check(r["launches"] == want == r["kernels"],
+              f"long cell {r['name']} prompt {r['config'][2]} pool_mult "
+              f"{r['config'][3]}: launches {r['launches']}, want {want}")
+    (scale,) = [r for r in recs if r["suite"] == "scale_check"]
+    check(scale["P"] == 1152 and scale["kernels"] == {key: 1},
+          f"scale check: {scale}")
+    total = sum(r["kernels"].get(key, 0) for r in recs)
+    check(pa.LAUNCHES[key] == total, f"long cells: {pa.LAUNCHES[key]} "
+          f"launches, the records count {total}")
+    ms, pages = {}, {}
+    for (name, prompt, mult), r in zip(LONG_CELLS, cells):
+        ms[name, prompt, mult] = (r["busy_ms"], r["host_ms"])
+        pages[prompt, mult] = r["num_pages"]
+        log(f"  cell prompt {prompt} pool_mult {mult} ("
+            f"{r['num_pages']} pages), ms a step host/device/busy: "
+            f"{probe_summary(r)}; launches {r['launches']}")
+    log(f"  scale check at P=1152: acc/m/l max diff "
+        f"{[f'{d:.3e}' for d in scale['diffs']]}")
+    # us a step per page of the pool (pool_mult 1 -> 16 at one prompt) and
+    # per live page (prompt 128 -> 896 at pool_mult 1: 8 rows x 6 more
+    # committed pages), on busy and on host ms
+    for i, what in enumerate(("busy", "host")):
+        if any(v[i] is None for v in ms.values()):
+            log(f"  {what} ms: not measured")
+            continue
+        pool = [(ms["int8", p, 16][i] - ms["int8", p, 1][i]) * 1e3
+                / (pages[p, 16] - pages[p, 1]) for p in (128, 896)]
+        live = (ms["int8", 896, 1][i] - ms["int8", 128, 1][i]) * 1e3 / 48
+        log(f"  {what}: {pool[0]:.4f} / {pool[1]:.4f} us a step per pool "
+            f"page (prompt 128 / 896), {live:.3f} us a step per live page "
+            f"({live / L:.4f} a layer call); the plain parts at 896: "
+            f"{ms['int8-xlaattn', 896, 1][i]:.3f} ms against the kernel's "
+            f"{ms['int8', 896, 1][i]:.3f} [{card}]")
+
+
 # ---- phase 11: the kernel lab ------------------------------------------------
 
 # timed calls a run of the lab's sweeps (their default is 50)
@@ -3589,6 +3730,12 @@ def main(argv=None) -> int:
     phase(PHASE_18)
     phase_tp_serving(torch, card, served13)
 
+    # 19. the long-context engines, host-timed, so also before any trace
+    phase("phase 19: the long-context engines (ops/dev/probe_longctx.py, "
+          "probe_longrange.py), GPT-2 1558M, 8 x (896 + 128) and 32 x "
+          "(128 + 64)")
+    phase_long_engines(torch, pa, device, card)
+
     # 11. the kernel lab (its main path: the sweeps), then its kernels
     # timed
     phase(f"phase 11: the kernel lab, {LAB_ITERS} timed calls a run")
@@ -3607,6 +3754,11 @@ def main(argv=None) -> int:
         f"events for {parts_n} parts launches; read_trace: "
         + trace_summary(cli_trace))
     chunk_census(torch, cfg)
+
+    # 20. the long-context probes' chunk cells, profiled as phase 12's
+    phase("phase 20: the long-context chunk cells (ops/dev/probe_longctx.py "
+          "matrix, probe_longrange.py cells), GPT-2 124M, int8")
+    phase_long_cells(torch, pa, card)
     phase("done")
     log(f"  {time.monotonic() - t_start:.1f} s in all")
 

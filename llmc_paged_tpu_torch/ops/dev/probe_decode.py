@@ -62,6 +62,7 @@ from llmc_paged_tpu_torch.models.gpt2_paged import (
     decode_chunk_paged,
     prefill_paged,
 )
+from llmc_paged_tpu_torch.ops import flash_attention, paged_attention
 from llmc_paged_tpu_torch.ops import layers as OL
 from llmc_paged_tpu_torch.ops.int8 import quantize_params
 from llmc_paged_tpu_torch.ops.paged_attention import (
@@ -72,8 +73,10 @@ from llmc_paged_tpu_torch.ops.paged_attention import (
 # the sleep kernel spins on the SM clock: cycles a second it is sized
 # with (an H100 SXM boosts to 1.98 GHz; a slower clock sleeps longer)
 SLEEP_CLOCK_HZ = 2e9
-# timed calls of a step suite (each call runs its suite's steps)
+# timed calls of a step suite (each call runs its suite's steps); the
+# chunk suites' calls run 32 steps each, so one call averages 32 steps
 STEP_CALLS = 2
+CHUNK_CALLS = 1
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -192,6 +195,19 @@ def _attn_key(quant, ps, normalized=True):
 
 def _kernels(dev, key, n):
     return {key: n} if dev.type == "cuda" and n else {}
+
+
+def launch_counts() -> dict:
+    """Every serving kernel wrapper's launch count (paged attention and
+    the prefill's flash attention)."""
+    return {**paged_attention.LAUNCHES, **flash_attention.LAUNCHES}
+
+
+def launches_since(before: dict) -> dict:
+    """The wrappers launched since ``before`` (a launch_counts()) and how
+    often."""
+    return {k: n - before[k] for k, n in launch_counts().items()
+            if n != before[k]}
 
 
 # ---- suites -----------------------------------------------------------------
@@ -550,14 +566,16 @@ def _chunk_params(p32, cfg, pd, dev):
 
 def chunk_suite(B, cfg, dtypes=("float32", "bfloat16", "int8"),
                 page_size=128, prompt=128, pool_mult=1, device=None,
-                calls=STEP_CALLS):
+                calls=CHUNK_CALLS):
     """Per-step time of the real decode chunk (decode_chunk_paged, 32
     steps) by param and pool dtype: "param" or "param:kv"; param
     "int8b" is int8 weights with bf16 activations (int8 KV unless given);
     a "-xlaattn" suffix on the param runs use_kernel=False (the plain
     parts versions). ``prompt`` sets the committed context; ``pool_mult``
     multiplies the pool's page count at the same live range. The commit
-    reads its coordinates back: host and busy time only."""
+    reads its coordinates back: host and busy time only. A record's
+    ``launches`` are the kernel launches counted while it was measured,
+    ``kernels`` those its calls make."""
     dev = resolve_device(device)
     CHUNK = 32
     pps = max(2, -(-(prompt + CHUNK) // page_size))
@@ -584,6 +602,7 @@ def chunk_suite(B, cfg, dtypes=("float32", "bfloat16", "int8"),
                                       window=cfg.max_seq_len,
                                       use_kernel=use_kernel)[0]
 
+        before = launch_counts()
         t = measure(run, dev, calls, per=CHUNK, queue=False, busy=True)
         print(f"-- decode_chunk {dtype_name} ps={page_size}: "
               f"{t['ms']:.3f} ms/step ({B / t['ms'] * 1e3:.0f} tok/s at "
@@ -592,7 +611,8 @@ def chunk_suite(B, cfg, dtypes=("float32", "bfloat16", "int8"),
         records.append(dict(
             t, suite="chunk", name=dtype_name,
             config=(B, page_size, prompt, pool_mult),
-            tok_s=B / t["ms"] * 1e3,
+            num_pages=page_cfg.num_pages,
+            tok_s=B / t["ms"] * 1e3, launches=launches_since(before),
             kernels=_kernels(dev, _attn_key(kd == "int8", page_size,
                                             normalized=False), n)))
     return records
@@ -634,7 +654,7 @@ def chunk_unrolled(params, first_tokens, positions0, pages, slots,
 
 
 def chunk_suite_unrolled(B, cfg, dtypes=("float32", "bfloat16"),
-                         device=None, calls=STEP_CALLS):
+                         device=None, calls=CHUNK_CALLS):
     """Per-step time of chunk_unrolled (32 steps, ps=128, 128-token
     context, float pools of the param dtype): the single-step path with
     no synchronizing call, so it queues behind a sleep."""

@@ -31,7 +31,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "llmc_paged_tpu_torch.ops.dev.dump_chunk_trace",
             "llmc_paged_tpu_torch.parallel",
             "llmc_paged_tpu_torch.parallel.sharding",
-            "llmc_paged_tpu_torch.parallel.mp_dryrun"} <= set(
+            "llmc_paged_tpu_torch.parallel.mp_dryrun",
+            "llmc_paged_tpu_torch.ops.dev.serving_runs",
+            "llmc_paged_tpu_torch.ops.dev.probe_longctx",
+            "llmc_paged_tpu_torch.ops.dev.probe_longrange"} <= set(
                 _port_modules())
     code = (
         "import importlib, sys\n"
@@ -72,6 +75,9 @@ def test_no_source_names_jax_or_the_jax_package():
             os.path.join(PKG, "csrc", "block_manager.cpp")} <= set(files)
     assert {os.path.join(PKG, "parallel", n) for n in
             ("__init__.py", "sharding.py", "mp_dryrun.py")} <= set(files)
+    assert {os.path.join(PKG, "ops", "dev", n) for n in
+            ("serving_runs.py", "probe_longctx.py",
+             "probe_longrange.py")} <= set(files)
     hits = []
     for f in files:
         with open(f) as fh:
@@ -106,6 +112,12 @@ def test_entry_points_default_to_the_card(fixtures_dir, monkeypatch):
         probe_decode.main(["--skip", ",".join(probe_decode.SUITES)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         probe_decode.gemv_suite(8, cfg)
+    # the long-context probes
+    from llmc_paged_tpu_torch.ops.dev import probe_longctx, probe_longrange
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe_longctx.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe_longrange.main([])
     # training from scratch and its CLI
     from llmc_paged_tpu_torch import train
     monkeypatch.delenv("LLMC_PLATFORM", raising=False)
