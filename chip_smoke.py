@@ -1253,14 +1253,13 @@ def phase_serving(torch, pa, params32, cfg, device, greedy_host_ms):
     sb = eng.stats
     check(len(done) == 8 and sb["single_steps"] == 0,
           "int8 batch run: a device-sampled batch took single steps")
-    host_ms = 1e3 * (sb["t_chain_dispatch_s"] + sb["t_materialize_s"]) \
-        / sb["decode_steps"]
     log(f"  int8 batch run of the same requests: decode_tok_per_s "
         f"{sb['decode_tok_per_s']:.1f}, p50_ttft_s {sb['p50_ttft_s']:.4f}, "
-        f"host per chunk step {host_ms:.2f} ms (chain dispatch "
-        f"{sb['t_chain_dispatch_s']} s + materialize "
-        f"{sb['t_materialize_s']} s over {sb['decode_steps']} steps); "
-        f"phase 4's greedy chain: {greedy_host_ms:.2f} ms")
+        f"host per chunk step {host_ms_step(sb):.2f} ms (model.step over "
+        f"{sb['decode_steps']} steps; chain dispatch "
+        f"{sb['t_chain_dispatch_s']} s, materialize "
+        f"{sb['t_materialize_s']} s); phase 4's greedy chain: "
+        f"{greedy_host_ms:.2f} ms")
     # synchronizing calls in one bare device-sampled link: device
     # carries, host coordinates, per-row arrays, penalties and logprobs
     B8 = 8
@@ -1745,10 +1744,9 @@ def phase_native_manager(torch, pa, params32, cfg, device):
                                     new, list) else new))
                         for i, p in enumerate(prompts)]
 
-    def line(tag, flag, st, mgr_ms, calls, steps_key="decode_steps",
-             host_keys=("t_chain_dispatch_s", "t_materialize_s")):
+    def line(tag, flag, st, mgr_ms, calls, steps_key="decode_steps"):
         steps = max(1, st[steps_key])
-        host_ms = 1e3 * sum(st[k] for k in host_keys) / steps
+        host_ms = 1e3 * decode_host_s(st) / steps
         log(f"  {tag} {'native' if flag else 'python'}: decode_tok_per_s "
             f"{st['decode_tok_per_s']:.1f}, {steps_key} {st[steps_key]}, "
             f"host {host_ms:.3f} ms a step, manager {mgr_ms:.4f} ms a step "
@@ -1806,8 +1804,7 @@ def phase_native_manager(torch, pa, params32, cfg, device):
               f"(c) native_manager={flag}: {st['single_steps']} single "
               "steps, or a short stream")
         cli_streams[flag] = out
-        line("(c) cli settings", flag, st, mgr_ms, calls, "single_steps",
-             ("t_step_dispatch_s", "t_materialize_s"))
+        line("(c) cli settings", flag, st, mgr_ms, calls, "single_steps")
     check(cli_streams[True] == cli_streams[False],
           "(c) native and python streams differ")
 
@@ -2070,8 +2067,21 @@ def rank_prefill_ms(seed, cfg, econf, reqs):
 
 
 def host_ms_step(st):
-    return 1e3 * (st["t_chain_dispatch_s"] + st["t_materialize_s"]) \
-        / max(1, st["decode_steps"])
+    """Host ms to enqueue one decode step: the chained steps' model.step
+    span where the run chained, else the single-token steps' dispatch."""
+    step = st["spans"].get("model.step")
+    if step:
+        return 1e3 * step["s"] / step["n"]
+    return 1e3 * st["t_step_dispatch_s"] / max(1, st["single_steps"])
+
+
+def decode_host_s(st):
+    """Host seconds of a run's decode, each counted once: its links' and
+    single steps' own dispatch, the chained steps' enqueue and every
+    blocking device-to-host fetch."""
+    return (st["t_chain_dispatch_s"] + st["t_step_dispatch_s"]
+            + st["spans"].get("model.step", {}).get("s", 0.0)
+            + st["t_materialize_s"])
 
 
 def par_requests(prompts, new):
@@ -3440,14 +3450,14 @@ def main(argv=None) -> int:
           and launches_main["paged_decode_attention_quant_parts_mq"] == 0,
           f"headline: {launches_main} launches, want {want} int8 "
           f"(L x {st['decode_steps']} decode steps) and no mq launch")
-    greedy_host_ms = 1e3 * (st["t_chain_dispatch_s"]
-                            + st["t_materialize_s"]) / st["decode_steps"]
+    greedy_host_ms = host_ms_step(st)
     log(f"  decode_tok_per_s {st['decode_tok_per_s']:.1f}, p50_ttft_s "
         f"{st['p50_ttft_s']:.4f}, decode steps {st['decode_steps']}, "
         f"launches {launches_main}, wall {st['wall_s']:.3f} s (host: "
         f"prefill dispatch {st['t_prefill_dispatch_s']} s, chain dispatch "
         f"{st['t_chain_dispatch_s']} s, materialize "
-        f"{st['t_materialize_s']} s; {greedy_host_ms:.2f} ms a chunk step)")
+        f"{st['t_materialize_s']} s; model.step {greedy_host_ms:.2f} ms a "
+        "chained step)")
 
     # 5. fp32 engine: kernel route vs plain route
     phase("phase 5: fp32 engine, kernel route vs plain route")

@@ -95,6 +95,8 @@ from llmc_paged_tpu_torch.sampler import (
     sample_mult,
     topk_probs,
 )
+from llmc_paged_tpu_torch.utils import spans
+from llmc_paged_tpu_torch.utils.spans import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -367,7 +369,7 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)
         self.use_kernel = use_kernel
         self.native_manager = native_manager
-        self.stats: Dict[str, float] = {}
+        self.stats: Dict[str, object] = {}
         # live snapshot for long-lived serving runs (self.stats is written
         # only when run() returns): rebuilt as a whole dict at every
         # scheduler iteration, so readers on other threads never see a
@@ -682,7 +684,19 @@ class InferenceEngine:
         call (streaming). While a request with ``req.stream`` runs,
         chains cap at EngineConfig.stream_links links a materialization.
         A request whose ``cancelled`` flag is set (from any thread) is
-        retired at the next iteration top or chain materialization."""
+        retired at the next iteration top or chain materialization.
+
+        The run's host time is recorded in spans (utils/spans.py), on a
+        recorder of its own: ``stats["spans"]`` holds each span's count,
+        seconds and self seconds, and the ``t_*_s`` buckets are read from
+        them. While a profiler records, each span is also a
+        ``record_function`` range of the trace."""
+        with spans.recording() as rec:
+            return self._run(rec, requests, window, sampler, feed,
+                             on_finish, on_tokens)
+
+    def _run(self, rec, requests, window, sampler, feed, on_finish,
+             on_tokens) -> List[Request]:
         cfg, econf = self.cfg, self.econf
         page = econf.page
         window = _check_window(window, cfg)
@@ -718,7 +732,8 @@ class InferenceEngine:
             sched.finished.append(r)
             record_finished(r)
             if on_finish is not None:
-                on_finish(r)
+                with span("engine.callback"):
+                    on_finish(r)
 
         def submit_one(r: Request) -> None:
             if r.cancelled:        # cancelled before it ever reached us
@@ -746,11 +761,6 @@ class InferenceEngine:
         suffix_prefills = 0     # prefix-cache suffix prefill calls
         peak_pages = 0
         iteration = 0
-        # host wall-time breakdown: dispatch buckets measure host time to
-        # build and enqueue work (the device runs asynchronously);
-        # materialize measures the blocking device→host fetches
-        tacc = {"prefill_dispatch": 0.0, "chain_dispatch": 0.0,
-                "step_dispatch": 0.0, "materialize": 0.0}
         # per-slot count of prompt tokens dropped at admission (prompt
         # longer than the window); cache positions are relative to it
         bases: Dict[int, int] = {}
@@ -808,7 +818,8 @@ class InferenceEngine:
             n = len(req.generated)
             sent = getattr(req, "_stream_sent", 0)
             if n > sent:
-                on_tokens(req, req.generated[sent:n])
+                with span("engine.callback"):
+                    on_tokens(req, req.generated[sent:n])
                 req._stream_sent = n
 
         def finish_slot(slot: int) -> None:
@@ -819,7 +830,8 @@ class InferenceEngine:
             update_live_stats()
             notify_tokens(req)
             if on_finish is not None:
-                on_finish(req)
+                with span("engine.callback"):
+                    on_finish(req)
 
         def sweep_cancelled() -> None:
             """Retire requests cancelled since the last iteration. No
@@ -856,17 +868,25 @@ class InferenceEngine:
             """Serving, between chain links: arrivals join the waiting
             queue (a host queue check; nothing touches the device)."""
             nonlocal feed_open, queue_blocked
-            new_reqs, feed_open = feed(False)
+            with spans.caller("engine.callback"):
+                new_reqs, feed_open = feed(False)
             for r in new_reqs:
                 submit_one(r)
             queue_blocked = queue_blocked or bool(sched.waiting)
 
         feed_open = feed is not None
+        # one span a pass of the loop, closed at the next pass's top: a
+        # range opens only if a profiler records when its pass starts
+        pass_span = None
         while True:
+            if pass_span is not None:
+                pass_span.close()
+            pass_span = span("engine.iteration").open()
             if feed_open:
                 # requests that arrived join this iteration's admission
                 # wave; an idle engine lets the feed block briefly
-                new_reqs, feed_open = feed(not sched.has_work)
+                with spans.caller("engine.callback"):
+                    new_reqs, feed_open = feed(not sched.has_work)
                 for r in new_reqs:
                     submit_one(r)
             sweep_cancelled()
@@ -892,6 +912,7 @@ class InferenceEngine:
             # tokens picked on the device, fetched after the first link
             deferred = None
             admitted: List[Tuple[int, Request]] = []
+            admit_span = span("engine.admit").open()
             for slot in sched.free_slots():
                 req = sched.pop_next_waiting()
                 if req is None:
@@ -925,8 +946,10 @@ class InferenceEngine:
                 progressed = True
                 sched.admit(req, slot)
                 admitted.append((slot, req))
+            admit_span.close()
             if admitted:
-                t_pf0 = time.monotonic()
+                prefill_span = span("engine.prefill").open()
+                t_wave = time.monotonic()
                 group = admitted
                 Tb = _bucket(max(len(req.tokens) - bases[slot]
                                  - cached[slot] for slot, req in group))
@@ -944,6 +967,11 @@ class InferenceEngine:
                     tables_g[i] = mgr.block_table_array(slot, pps)
                     last[i] = n - 1
                     offs[i] = cached[slot]      # page-aligned by adopt
+                    # the wave's (Bg, Tb) token slots shared by its rows
+                    if req.t_admit is None:
+                        req.t_admit = t_wave
+                    req.prefill_tokens += n
+                    req.prefill_slots += Bg * Tb / len(group)
                 pos = offs[:, None] + np.arange(Tb, dtype=np.int32)[None, :]
                 pg, sl = token_coords(torch.from_numpy(tables_g),
                                       torch.from_numpy(pos), page.page_size,
@@ -976,7 +1004,8 @@ class InferenceEngine:
                     logits, plp_d = _prefill_plp_extract(full, xs, valid,
                                                          last)
                     del full
-                    plp = plp_d.cpu().numpy()
+                    with span("engine.fetch"):
+                        plp = plp_d.cpu().numpy()
                     for i, req in plp_rows:
                         req.prompt_logprob_values = [
                             float(v) for v in plp[i, : len(req.prompt) - 1]]
@@ -1013,25 +1042,28 @@ class InferenceEngine:
                 else:
                     # a sampled or penalized row draws its first token now,
                     # from the host stream in row order
-                    if any(_has_overrides(r) or _has_penalties(r)
-                           for r in group_reqs):
-                        first_toks = _sample_rows_per_request(
-                            sampler, lg, group_reqs)
-                    else:
-                        first_toks = _sample_rows(sampler, lg, len(group))
-                    lrows = _host(lg) if group_lp else None
-                    for i, (slot, req) in enumerate(group):
-                        req.generated.append(first_toks[i])
-                        if req.logprobs:
-                            req.logprob_values.append(
-                                _row_logprob(lrows[i], first_toks[i]))
-                        req.mark_first_token()
-                        apply_stop(req)
-                        notify_tokens(req)
-                        if req.done:
-                            mgr.free_prompt(slot)
-                            finish_slot(slot)
-                tacc["prefill_dispatch"] += time.monotonic() - t_pf0
+                    with span("engine.fetch"):
+                        if any(_has_overrides(r) or _has_penalties(r)
+                               for r in group_reqs):
+                            first_toks = _sample_rows_per_request(
+                                sampler, lg, group_reqs)
+                        else:
+                            first_toks = _sample_rows(sampler, lg,
+                                                      len(group))
+                        lrows = _host(lg) if group_lp else None
+                    with span("engine.deliver"):
+                        for i, (slot, req) in enumerate(group):
+                            req.generated.append(first_toks[i])
+                            if req.logprobs:
+                                req.logprob_values.append(
+                                    _row_logprob(lrows[i], first_toks[i]))
+                            req.mark_first_token()
+                            apply_stop(req)
+                            notify_tokens(req)
+                            if req.done:
+                                mgr.free_prompt(slot)
+                                finish_slot(slot)
+                prefill_span.close()
 
             def flush_deferred():
                 """Materialize the deferred prefill picks (and logprobs, in
@@ -1040,19 +1072,19 @@ class InferenceEngine:
                 nonlocal deferred, progressed
                 if deferred is None:
                     return
-                t_m0 = time.monotonic()
-                picks, lps = _fetch(deferred[0], deferred[1])
-                tacc["materialize"] += time.monotonic() - t_m0
-                for i, (slot, req) in enumerate(deferred[2]):
-                    req.generated.append(int(picks[i]))
-                    if req.logprobs and lps is not None:
-                        req.logprob_values.append(float(lps[i]))
-                    req.mark_first_token()
-                    apply_stop(req)
-                    notify_tokens(req)
-                    if req.done:
-                        mgr.free_prompt(slot)
-                        finish_slot(slot)
+                with span("engine.fetch"):
+                    picks, lps = _fetch(deferred[0], deferred[1])
+                with span("engine.deliver"):
+                    for i, (slot, req) in enumerate(deferred[2]):
+                        req.generated.append(int(picks[i]))
+                        if req.logprobs and lps is not None:
+                            req.logprob_values.append(float(lps[i]))
+                        req.mark_first_token()
+                        apply_stop(req)
+                        notify_tokens(req)
+                        if req.done:
+                            mgr.free_prompt(slot)
+                            finish_slot(slot)
                 progressed = True
                 deferred = None
 
@@ -1111,13 +1143,13 @@ class InferenceEngine:
                 TK = S * Ksp
                 ps = page.page_size
                 pending_spec: List = []   # (out dev, counts dev, plan)
-                t_cd0 = time.monotonic()
                 links = 0
                 hist_d = first_d = pos0_d = None
                 pre_len: Dict[int, int] = {}
                 gen_before = {s: len(r.generated)
                               for s, r in sched.running.items()}
                 while True:
+                    link_span = span("engine.link").open()
                     plan: List[int] = []
                     need_pages = 0
                     for slot, req in sched.running.items():
@@ -1133,6 +1165,7 @@ class InferenceEngine:
                         need_pages += max(0, -(-(TK - tail) // ps))
                         plan.append(slot)
                     if not plan or need_pages > mgr.num_free():
+                        link_span.close()
                         break
                     for slot in plan:
                         pre_len.setdefault(slot, mgr.seq_len(slot))
@@ -1182,6 +1215,7 @@ class InferenceEngine:
                     if feed_open:        # serving: arrivals break chains
                         poll_feed()
                     update_live_stats()  # per-link snapshot
+                    link_span.close()
                     # acceptance is data-dependent: a row MAY have finished
                     # once links*S*spec_k covers its remaining budget
                     may_free = any(
@@ -1197,20 +1231,19 @@ class InferenceEngine:
                         # link: materialize so its slot and pages free;
                         # when serving, deliver a finished row now
                         break
-                tacc["chain_dispatch"] += time.monotonic() - t_cd0
                 if pending_spec:
                     progressed = True
-                    t_m0 = time.monotonic()
                     # one device→host copy for the whole chain: the tokens
                     # and counts of every link in one tensor
                     n_out = S * Ksp * B
-                    flat = torch.stack([
-                        torch.cat([o.reshape(-1), c.reshape(-1)])
-                        for o, c, _ in pending_spec]).cpu().numpy()
-                    tacc["materialize"] += time.monotonic() - t_m0
+                    with span("engine.fetch"):
+                        flat = torch.stack([
+                            torch.cat([o.reshape(-1), c.reshape(-1)])
+                            for o, c, _ in pending_spec]).cpu().numpy()
                     all_out = flat[:, :n_out].reshape(-1, S, Ksp, B)
                     all_cnt = flat[:, n_out:].reshape(-1, S, B)
                     committed = {s: 0 for s in pre_len}
+                    deliver_span = span("engine.deliver").open()
                     for li, (_, _, plan) in enumerate(pending_spec):
                         for slot in plan:
                             req = sched.running[slot]
@@ -1234,6 +1267,7 @@ class InferenceEngine:
                         if sched.running[slot].done:
                             mgr.free_prompt(slot)
                             finish_slot(slot)
+                    deliver_span.close()
                     # a row still needing tokens but WITHOUT headroom for a
                     # full reservation can never join a spec plan: fall
                     # through to the plain chain for it, or it would starve
@@ -1323,8 +1357,8 @@ class InferenceEngine:
                 pending: List = []   # (toks (chunk,B), logps|None, stepped)
                 pend_counts: Dict[int, int] = {}
                 first_dev = None
-                t_cd0 = time.monotonic()
                 while True:
+                    link_span = span("engine.link").open()
                     dct = defer_counts()
                     need_pages = 0
                     plan: List[int] = []
@@ -1346,6 +1380,7 @@ class InferenceEngine:
                         need_pages += max(0, -(-(chunk - tail) // ps))
                         plan.append(slot)
                     if not plan or need_pages > mgr.num_free():
+                        link_span.close()
                         break
                     first = np.zeros(B, np.int32)
                     pos0 = np.full(B, -1, np.int32)   # -1 → inactive row
@@ -1414,6 +1449,7 @@ class InferenceEngine:
                     if feed_open:        # serving: arrivals break chains
                         poll_feed()
                     update_live_stats()  # per-link snapshot
+                    link_span.close()
                     if stream_cap and len(pending) >= stream_cap:
                         break
                     if cancel_pending():
@@ -1427,18 +1463,17 @@ class InferenceEngine:
                         # row can finish (or pages/slots may free) so the
                         # waiting queue gets its admission retry
                         break
-                tacc["chain_dispatch"] += time.monotonic() - t_cd0
                 if pending:
                     progressed = True
                     flush_deferred()
-                    t_m0 = time.monotonic()
                     # one device→host copy for the whole chain: tokens and
                     # logprobs together
-                    all_picks, all_lps = _fetch(
-                        torch.stack([t for t, _, _ in pending]),
-                        torch.stack([p for _, p, _ in pending])
-                        if want_lp else None)
-                    tacc["materialize"] += time.monotonic() - t_m0
+                    with span("engine.fetch"):
+                        all_picks, all_lps = _fetch(
+                            torch.stack([t for t, _, _ in pending]),
+                            torch.stack([p for _, p, _ in pending])
+                            if want_lp else None)
+                    deliver_span = span("engine.deliver").open()
                     for li, (picks, (_, _, stepped)) in enumerate(
                             zip(all_picks, pending)):
                         for slot, keep in stepped:
@@ -1461,6 +1496,7 @@ class InferenceEngine:
                         if sched.running[slot].done:
                             mgr.free_prompt(slot)
                             finish_slot(slot)
+                    deliver_span.close()
                     continue
                 chunk = 1   # no chain could run: single-token step below
 
@@ -1503,22 +1539,22 @@ class InferenceEngine:
                     if econf.debug_checks:
                         _validate_indices(page, tables, pg[None], sl[None],
                                           lengths)
-                    t_sd0 = time.monotonic()
-                    logits, pool = gpt2_paged.decode_step_paged(
-                        self._decode_params, torch.from_numpy(toks),
-                        torch.from_numpy(wpe_pos), torch.from_numpy(pg),
-                        torch.from_numpy(sl), torch.from_numpy(tables),
-                        torch.from_numpy(lengths), pool, cfg,
-                        use_kernel=self.use_kernel,
-                        starts=torch.from_numpy(starts), model=self._model)
-                    tacc["step_dispatch"] += time.monotonic() - t_sd0
+                    with span("engine.step"):
+                        logits, pool = gpt2_paged.decode_step_paged(
+                            self._decode_params, torch.from_numpy(toks),
+                            torch.from_numpy(wpe_pos), torch.from_numpy(pg),
+                            torch.from_numpy(sl), torch.from_numpy(tables),
+                            torch.from_numpy(lengths), pool, cfg,
+                            use_kernel=self.use_kernel,
+                            starts=torch.from_numpy(starts),
+                            model=self._model)
                     decode_steps += 1
                     single_steps += 1
                     decode_tokens += len(stepped_s)
                     # rows gathered in `stepped_s` order so the parity RNG
                     # stream is consumed per stepped row, in order
                     step_reqs = [sched.running[s] for s in stepped_s]
-                    t_m0 = time.monotonic()
+                    fetch_span = span("engine.fetch").open()
                     step_logits = logits[to_device(torch.tensor(stepped_s),
                                                    dev)]
                     if any(_has_overrides(r) or _has_penalties(r)
@@ -1530,24 +1566,26 @@ class InferenceEngine:
                                                 len(stepped_s))
                     lrows = (_host(step_logits)
                              if any(r.logprobs for r in step_reqs) else None)
-                    tacc["materialize"] += time.monotonic() - t_m0
-                    for i, (slot, tok) in enumerate(zip(stepped_s,
-                                                        row_toks)):
-                        req = sched.running[slot]
-                        req.generated.append(tok)
-                        if req.logprobs:
-                            req.logprob_values.append(
-                                _row_logprob(lrows[i], tok))
-                        apply_stop(req)
-                        notify_tokens(req)
-                        if req.done:
-                            mgr.free_prompt(slot)
-                            finish_slot(slot)
+                    fetch_span.close()
+                    with span("engine.deliver"):
+                        for i, (slot, tok) in enumerate(zip(stepped_s,
+                                                            row_toks)):
+                            req = sched.running[slot]
+                            req.generated.append(tok)
+                            if req.logprobs:
+                                req.logprob_values.append(
+                                    _row_logprob(lrows[i], tok))
+                            apply_stop(req)
+                            notify_tokens(req)
+                            if req.done:
+                                mgr.free_prompt(slot)
+                                finish_slot(slot)
 
             if not progressed and not sched.running:
                 raise RuntimeError(
                     "scheduler stalled: pool too small for any waiting "
                     "request (need a larger page pool or shorter prompts)")
+        pass_span.close()
 
         self._pool_cache = pool
         update_live_stats()
@@ -1562,10 +1600,17 @@ class InferenceEngine:
             # the last 1024 finishes: exact for batch runs, a recent
             # window for long-lived serving
             "p50_ttft_s": float(np.median(ttfts)) if ttfts else 0.0,
-            "t_prefill_dispatch_s": round(tacc["prefill_dispatch"], 4),
-            "t_chain_dispatch_s": round(tacc["chain_dispatch"], 4),
-            "t_step_dispatch_s": round(tacc["step_dispatch"], 4),
-            "t_materialize_s": round(tacc["materialize"], 4),
+            # host buckets, each second counted once: the dispatch
+            # buckets are the self times of their spans (a blocking fetch,
+            # delivery, the caller's callbacks and the chained steps'
+            # model.step spans are out of them), materialize the total of
+            # every blocking device-to-host fetch
+            "t_prefill_dispatch_s": round(rec.self_seconds("engine.prefill"),
+                                          4),
+            "t_chain_dispatch_s": round(rec.self_seconds("engine.link"), 4),
+            "t_step_dispatch_s": round(rec.self_seconds("engine.step"), 4),
+            "t_materialize_s": round(rec.seconds("engine.fetch"), 4),
+            "spans": rec.as_dict(),
             "verify_steps": verify_steps,
             "single_steps": single_steps,
             "suffix_prefills": suffix_prefills,

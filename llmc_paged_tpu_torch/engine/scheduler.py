@@ -74,8 +74,15 @@ class Request:
     slot: Optional[int] = None
     preemptions: int = 0
     t_submit: float = 0.0
+    # the start of the request's first admission wave (every row of a wave
+    # shares it): t_admit - t_submit is its wait in the queue
+    t_admit: Optional[float] = None
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
+    # summed over the request's admissions: the real tokens it prefilled,
+    # and its share Bg*Tb/rows of each wave's padded (Bg, Tb) token slots
+    prefill_tokens: int = 0
+    prefill_slots: float = 0.0
 
     @property
     def tokens(self) -> List[int]:

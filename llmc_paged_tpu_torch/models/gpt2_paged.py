@@ -69,6 +69,7 @@ from llmc_paged_tpu_torch.ops.paged_attention import (
     paged_decode_attention_quant_ref,
     paged_decode_attention_ref,
 )
+from llmc_paged_tpu_torch.utils.spans import span
 
 
 def _dev(params) -> torch.device:
@@ -313,31 +314,33 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
 
     out, logps = [], []
     for j in range(num_steps):
-        pos = safe_pos0 + j
-        wpe_pos = torch.clamp(pos, max=window - 1)
-        starts = torch.clamp(pos + 1 - window, min=0)
-        x = model.embed(params, toks, wpe_pos)
-        for i in range(cfg.num_layers):
-            def attend(q, k, v, i=i, j=j):
-                tks[i][j] = k
-                tvs[i][j] = v
-                return _chunk_attention(q.contiguous(), pool.layer(i),
-                                        tks[i], tvs[i], block_tables,
-                                        lengths_pool, starts, safe_pos0, j,
-                                        use_kernel, quant)
+        # the host time to enqueue one chained decode step
+        with span("model.step"):
+            pos = safe_pos0 + j
+            wpe_pos = torch.clamp(pos, max=window - 1)
+            starts = torch.clamp(pos + 1 - window, min=0)
+            x = model.embed(params, toks, wpe_pos)
+            for i in range(cfg.num_layers):
+                def attend(q, k, v, i=i, j=j):
+                    tks[i][j] = k
+                    tvs[i][j] = v
+                    return _chunk_attention(
+                        q.contiguous(), pool.layer(i), tks[i], tvs[i],
+                        block_tables, lengths_pool, starts, safe_pos0, j,
+                        use_kernel, quant)
 
-            x = model.block(x, gpt2._layer(stack, i), cfg, attend)
-        logits = model.logits(x, params, cfg)
-        toks = _pick(logits, counts, rng, top_k, temperature, k_arr,
-                     greedy_rows, freq_pen, pres_pen)
-        if counts is not None:
-            counts.scatter_add_(1, toks.long()[:, None],
-                                torch.ones_like(toks)[:, None])
-        if want_logprobs:
-            lf = logits.float()
-            logps.append(torch.gather(lf, 1, toks.long()[:, None])[:, 0]
-                         - torch.logsumexp(lf, dim=-1))
-        out.append(toks)
+                x = model.block(x, gpt2._layer(stack, i), cfg, attend)
+            logits = model.logits(x, params, cfg)
+            toks = _pick(logits, counts, rng, top_k, temperature, k_arr,
+                         greedy_rows, freq_pen, pres_pen)
+            if counts is not None:
+                counts.scatter_add_(1, toks.long()[:, None],
+                                    torch.ones_like(toks)[:, None])
+            if want_logprobs:
+                lf = logits.float()
+                logps.append(torch.gather(lf, 1, toks.long()[:, None])[:, 0]
+                             - torch.logsumexp(lf, dim=-1))
+            out.append(toks)
 
     # commit the chunk's K/V, one indexed write per layer (int8 pools
     # quantize here, once)
