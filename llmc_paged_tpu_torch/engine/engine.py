@@ -57,7 +57,11 @@ Host↔device traffic per link: a few int32 metadata arrays go up through
 pinned memory without blocking (first tokens, positions, page/slot
 coordinates, block tables; a speculative link uploads only its block
 tables and its active-row mask); tokens (and logprobs, or a speculative
-chain's acceptance counts) come down once per chain.
+chain's acceptance counts) come down once per chain. A greedy chain on
+one card replays each step as a CUDA graph (models/decode_graphs.py):
+the engine's ``DecodeGraphs`` captures every chain length it can ask for
+at the first such chain, and ``stats["decode_graph_steps"]`` counts the
+steps that replayed.
 
 Tensor parallelism (EngineConfig.mesh_shape, ``{"model": m}`` or
 ``{"data": d, "model": m}``; parallel/sharding.py): the engine runs in
@@ -87,6 +91,7 @@ from llmc_paged_tpu_torch.engine.scheduler import Request, Scheduler, State
 from llmc_paged_tpu_torch.kv import native
 from llmc_paged_tpu_torch.kv.layouts import init_pool, to_device, token_coords
 from llmc_paged_tpu_torch.models import gpt2, gpt2_paged
+from llmc_paged_tpu_torch.models.decode_graphs import DecodeGraphs
 from llmc_paged_tpu_torch.ops.int8 import quantize_params
 from llmc_paged_tpu_torch.parallel import sharding
 from llmc_paged_tpu_torch.sampler import (
@@ -297,6 +302,14 @@ def _validate_indices(page_cfg: PageConfig, tables: np.ndarray,
         raise ValueError("length exceeds table")
 
 
+def _chain_lengths(decode_chunk: int) -> Tuple[int, ...]:
+    """Every length a plain chain link can take: decode_chunk, a quarter
+    of it (a short remaining context or page-blocked admission) and a
+    sixteenth (both)."""
+    dc = max(1, decode_chunk)
+    return tuple(sorted({k for k in (dc, dc // 4, dc // 16) if k > 1}))
+
+
 def _check_window(window: Optional[int], cfg: GPT2Config) -> int:
     """Reject windows the position embedding cannot serve."""
     if window is not None and window < 1:
@@ -381,6 +394,8 @@ class InferenceEngine:
         # prefix caching: the manager persists across run() calls together
         # with the pool whose pages it describes
         self._prefix_mgr = None
+        # CUDA graphs of the greedy chained step, over the pool above
+        self._decode_graphs = DecodeGraphs(_chain_lengths(econf.decode_chunk))
 
     def _whole_model(self, params, quantized: bool) -> None:
         """``self.params`` (and the bf16 prefill copy) on the device."""
@@ -652,6 +667,9 @@ class InferenceEngine:
                                             native=self.native_manager)
         pool = self._pool_cache
         self._pool_cache = None
+        if pool is None:
+            # graphs over a lost pool would hold it beside the new one
+            self._decode_graphs.reset()
         if pool is None and self.mesh is not None:
             pool = sharding.init_tp_pool(self.cfg, page, self.mesh,
                                          dtype=page.kv_dtype,
@@ -754,6 +772,7 @@ class InferenceEngine:
         B = econf.max_batch
         pps = page.pages_per_seq
         t_start = time.monotonic()
+        graph_steps0 = self._decode_graphs.steps
         decode_tokens = 0
         decode_steps = 0        # device decode steps (each = L kernel calls)
         verify_steps = 0        # of which speculative verify steps
@@ -1434,7 +1453,8 @@ class InferenceEngine:
                         torch.from_numpy(tables), pool, cfg,
                         num_steps=chunk, window=window,
                         use_kernel=self.use_kernel, want_logprobs=want_lp,
-                        model=self._model, **samp_kw, **pen_kw)
+                        model=self._model, graphs=self._decode_graphs,
+                        **samp_kw, **pen_kw)
                     toks_out, counts_out, lp_out, pool = _unpack_chunk(
                         res, bool(pen_kw), want_lp)
                     if counts_out is not None:
@@ -1613,6 +1633,8 @@ class InferenceEngine:
             "spans": rec.as_dict(),
             "verify_steps": verify_steps,
             "single_steps": single_steps,
+            # of the decode steps, the chained steps replayed as a graph
+            "decode_graph_steps": self._decode_graphs.steps - graph_steps0,
             "suffix_prefills": suffix_prefills,
         }
         if use_spec:
@@ -1642,7 +1664,8 @@ class InferenceEngine:
         that the first tenant of a server pays none of the first-use
         costs: on the card, the CUDA kernels build (all four serving
         sources at once, the long-prompt prefill's flash kernel
-        included, "build") and the caching allocator warms.
+        included, "build"), the caching allocator warms and a greedy
+        chain captures its CUDA graphs (models/decode_graphs.py).
         Returns {stage: seconds}."""
         if self.econf.cache_mode != "paged":
             return {}

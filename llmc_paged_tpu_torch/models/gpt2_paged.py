@@ -26,8 +26,10 @@ holds, the prompt attention and the suffix kernel gate). ``SINGLE`` is
 the one-device model and the default; ``parallel/sharding.py::TPModel``
 the head-sharded one.
 
-The layer and step loops are Python loops run eagerly. Pool updates are
-in place. Index tensors may be passed on the CPU or on the pool's
+The layer and step loops are Python loops run eagerly, except a greedy
+decode chain on one card, whose step replays as a CUDA graph
+(``graph_eligible``, models/decode_graphs.py). Pool updates are in
+place. Index tensors may be passed on the CPU or on the pool's
 device: block tables, lengths and tokens go up through pinned memory
 without blocking (kv.layouts.to_device); pool coordinates (page/slot)
 are filtered where they lie, so coordinates built on the host cost no
@@ -53,6 +55,7 @@ from llmc_paged_tpu_torch.kv.layouts import (
     write_prompt_pages_quant,
 )
 from llmc_paged_tpu_torch.models import gpt2
+from llmc_paged_tpu_torch.models.decode_graphs import DecodeGraphs
 from llmc_paged_tpu_torch.ops import layers as L
 from llmc_paged_tpu_torch.ops.paged_attention import (
     NEG_INF,
@@ -178,13 +181,14 @@ def _merge_parts(acc_p, m_p, l_p, acc_t, m_t, l_t, out_dtype):
 
 
 def _chunk_attention(q, pool_l, tail_k, tail_v, block_tables, lengths_pool,
-                     starts, pos0, j: int, use_kernel: bool, quant: bool):
+                     starts, pos0, j, use_kernel: bool, quant: bool):
     """Decode-chunk attention: the read-only pool prefix (paged parts)
     merged with the in-flight tail (rows [0, j] valid).
 
     q (B, NH, HS); tail_k/tail_v (K, B, NH, HS); lengths_pool = pos0
     (completed tokens); starts = window lower bounds for the current
-    position. Returns (B, NH, HS) in q.dtype."""
+    position; j the step index, a 0-d device tensor. Returns (B, NH, HS)
+    in q.dtype."""
     B, NH, HS = q.shape
     K = tail_k.shape[0]
     if use_kernel:
@@ -246,6 +250,88 @@ def _pick(logits, counts, rng, top_k, temperature, k_arr, greedy_rows,
     return samp
 
 
+class _ChainState:
+    """The device tensors a chained decode step reads and writes: the
+    token it feeds (``toks`` (B,)), the committed lengths (``pos0`` (B,)),
+    the block tables, the step index ``j`` (0-d int64: the row of the
+    tails and of the outputs the step writes), the in-flight K/V
+    ``tails`` (2, L, steps, B, NH, HS) and the picks (``out`` (steps, B)
+    int32) with their logprobs (``logps`` (steps, B) f32, or None).
+
+    The tails hold K/V rounded to the serving compute dtype and stored
+    in f32, the dtype the tail attention reads them in: a step converts
+    its own row once instead of every row of the tail in every layer,
+    and the commit rounds the tails back (exactly) once a link."""
+
+    def __init__(self, toks, pos0, tables, steps: int, layers: int,
+                 heads: int, head_dim: int, logprobs: bool):
+        dev, B = toks.device, toks.shape[0]
+        self.toks, self.pos0, self.tables, self.steps = (toks, pos0, tables,
+                                                         steps)
+        self.j = torch.zeros((), dtype=torch.int64, device=dev)
+        self.tails = torch.zeros((2, layers, steps, B, heads, head_dim),
+                                 dtype=torch.float32, device=dev)
+        self.out = torch.zeros((steps, B), dtype=torch.int32, device=dev)
+        self.logps = (torch.zeros((steps, B), dtype=torch.float32,
+                                  device=dev) if logprobs else None)
+
+    def load(self, toks, pos0, tables, steps: int) -> None:
+        """A link's inputs into the buffers (device to device), the step
+        index at 0 and the first ``steps`` rows of the tails zeroed."""
+        self.toks.copy_(toks)
+        self.pos0.copy_(pos0)
+        self.tables.copy_(tables)
+        self.j.zero_()
+        self.tails[:, :, :steps].zero_()
+
+
+def _chain_step(params, stack, st: _ChainState, K: int, pool, cfg,
+                window: int, use_kernel: bool, quant: bool, model, pick,
+                cdtype, logprobs: bool):
+    """One step of a K-step chain over ``st``: feeds st.toks at position
+    pos0 + j, writes row j of the tails and of the outputs (and, with
+    ``logprobs``, of st.logps), feeds the pick back into st.toks and
+    advances j. It reads and writes device tensors only, so the graph
+    path captures it once and replays it K times; the eager path calls it
+    K times."""
+    jj = st.j.view(1)
+    pos = st.pos0 + st.j
+    wpe_pos = torch.clamp(pos, max=window - 1)
+    starts = torch.clamp(pos + 1 - window, min=0)
+    x = model.embed(params, st.toks, wpe_pos)
+    for i in range(cfg.num_layers):
+        tk, tv = st.tails[0, i, :K], st.tails[1, i, :K]
+
+        def attend(q, k, v, i=i, tk=tk, tv=tv):
+            tk.index_copy_(0, jj, k[None].to(cdtype).float())
+            tv.index_copy_(0, jj, v[None].to(cdtype).float())
+            return _chunk_attention(
+                q.contiguous(), pool.layer(i), tk, tv, st.tables, st.pos0,
+                starts, st.pos0, st.j, use_kernel, quant)
+
+        x = model.block(x, gpt2._layer(stack, i), cfg, attend)
+    logits = model.logits(x, params, cfg)
+    toks = pick(logits)
+    st.out[:K].index_copy_(0, jj, toks[None])
+    if logprobs:
+        lf = logits.float()
+        lp = (torch.gather(lf, 1, toks.long()[:, None])[:, 0]
+              - torch.logsumexp(lf, dim=-1))
+        st.logps[:K].index_copy_(0, jj, lp[None])
+    st.toks.copy_(toks)
+    st.j.add_(1)
+
+
+def graph_eligible(device, use_kernel: bool, rng, pen_counts, model) -> bool:
+    """Whether a decode_chunk_paged call replays a CUDA graph of its step:
+    on the card, through the kernels, greedy (a sampled chain's
+    torch.Generator is not registered with a graph), with no penalty
+    plane, on the one-device model (a tensor-parallel step holds
+    collectives). Every other call runs the step eagerly."""
+    return (torch.device(device).type == "cuda" and use_kernel
+            and rng is None and pen_counts is None and model is SINGLE)
+
+
 @torch.no_grad()
 def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
                        block_tables, pool: PagePool, cfg: GPT2Config,
@@ -253,7 +339,7 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
                        rng=None, top_k=None, temperature=1.0, k_arr=None,
                        greedy_rows=None, want_logprobs: bool = False,
                        pen_counts=None, freq_pen=None, pres_pen=None,
-                       model=SINGLE):
+                       model=SINGLE, graphs: DecodeGraphs | None = None):
     """K = num_steps decode steps in one call.
 
     first_tokens (B,) the token fed at sub-step 0 (may be a device tensor
@@ -276,6 +362,12 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
     from logits - freq_pen*counts - pres_pen*(counts > 0), greedy or
     sampled. ``want_logprobs`` adds each chosen token's logprob under
     the RAW softmax (f32 logsumexp).
+
+    ``graphs``: a DecodeGraphs cache. Where ``graph_eligible`` holds, the
+    step (``_chain_step``) is captured once as a CUDA graph and replayed
+    num_steps times over the cache's static buffers; the same kernels run
+    in the same order on the same data, so tokens, logprobs and the pool
+    equal the eager path's bit for bit.
 
     Returns (out[, counts][, logps], pool), the JAX convention: out
     (K, B) int32 on the device; counts (B, V) the updated plane when
@@ -302,58 +394,66 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
         pres_pen = to_device(pres_pen, dev).float()
     active = positions0 >= 0
     safe_pos0 = torch.where(active, positions0, 0).int()
-    B = toks.shape[0]
+    B, K = toks.shape[0], num_steps
     NH, HS = model.heads(cfg), cfg.head_dim
     quant = isinstance(pool, QuantPagePool)
     stack = gpt2._layer_stack(params)
     cdtype = params["wpe"].dtype            # the serving compute dtype
-    tks = [torch.zeros((num_steps, B, NH, HS), dtype=cdtype, device=dev)
-           for _ in range(cfg.num_layers)]
-    tvs = [torch.zeros_like(t) for t in tks]
-    lengths_pool = safe_pos0                # pool reads: completed prefix
 
-    out, logps = [], []
-    for j in range(num_steps):
-        # the host time to enqueue one chained decode step
-        with span("model.step"):
-            pos = safe_pos0 + j
-            wpe_pos = torch.clamp(pos, max=window - 1)
-            starts = torch.clamp(pos + 1 - window, min=0)
-            x = model.embed(params, toks, wpe_pos)
-            for i in range(cfg.num_layers):
-                def attend(q, k, v, i=i, j=j):
-                    tks[i][j] = k
-                    tvs[i][j] = v
-                    return _chunk_attention(
-                        q.contiguous(), pool.layer(i), tks[i], tvs[i],
-                        block_tables, lengths_pool, starts, safe_pos0, j,
-                        use_kernel, quant)
+    def pick(logits):
+        picked = _pick(logits, counts, rng, top_k, temperature, k_arr,
+                       greedy_rows, freq_pen, pres_pen)
+        if counts is not None:
+            counts.scatter_add_(1, picked.long()[:, None],
+                                torch.ones_like(picked)[:, None])
+        return picked
 
-                x = model.block(x, gpt2._layer(stack, i), cfg, attend)
-            logits = model.logits(x, params, cfg)
-            toks = _pick(logits, counts, rng, top_k, temperature, k_arr,
-                         greedy_rows, freq_pen, pres_pen)
-            if counts is not None:
-                counts.scatter_add_(1, toks.long()[:, None],
-                                    torch.ones_like(toks)[:, None])
-            if want_logprobs:
-                lf = logits.float()
-                logps.append(torch.gather(lf, 1, toks.long()[:, None])[:, 0]
-                             - torch.logsumexp(lf, dim=-1))
-            out.append(toks)
+    if graphs is not None and graph_eligible(dev, use_kernel, rng,
+                                             pen_counts, model):
+        graphs.bind(params, pool, cfg)
+        st = graphs.buffers(
+            tuple(block_tables.shape), K,
+            lambda n: _ChainState(
+                torch.zeros_like(toks), torch.zeros_like(safe_pos0),
+                torch.zeros_like(block_tables), n, cfg.num_layers, NH, HS,
+                logprobs=True))
+        g = graphs.graph(
+            (*block_tables.shape, window, want_logprobs), K,
+            lambda k: _chain_step(params, stack, st, k, pool, cfg, window,
+                                  use_kernel, quant, model, pick, cdtype,
+                                  want_logprobs),
+            st.j.zero_, dev)
+        st.load(toks, safe_pos0, block_tables, K)
+        graphs.replay(g, K)
+        out = st.out[:K].clone()
+        logps = st.logps[:K].clone() if want_logprobs else None
+    else:
+        # the step writes its picks into st.toks: a token tensor of the
+        # caller (a previous link's output row) is copied first
+        st = _ChainState(toks.clone(), safe_pos0, block_tables, K,
+                         cfg.num_layers, NH, HS, want_logprobs)
+        for _ in range(K):
+            # the host time to enqueue one chained decode step
+            with span("model.step"):
+                _chain_step(params, stack, st, K, pool, cfg, window,
+                            use_kernel, quant, model, pick, cdtype,
+                            want_logprobs)
+        out, logps = st.out, st.logps
 
     # commit the chunk's K/V, one indexed write per layer (int8 pools
-    # quantize here, once)
+    # quantize here, once), in the compute dtype the tails were rounded to
     for i in range(cfg.num_layers):
+        tk, tv = (t.to(cdtype) for t in (st.tails[0, i, :K],
+                                          st.tails[1, i, :K]))
         if quant:
-            commit_layer_kv_quant(pool.layer(i), tks[i], tvs[i], pages, slots)
+            commit_layer_kv_quant(pool.layer(i), tk, tv, pages, slots)
         else:
-            commit_layer_kv(*pool.layer(i), tks[i], tvs[i], pages, slots)
-    ret = (torch.stack(out),)
+            commit_layer_kv(*pool.layer(i), tk, tv, pages, slots)
+    ret = (out,)
     if counts is not None:
         ret += (counts,)
     if want_logprobs:
-        ret += (torch.stack(logps),)
+        ret += (logps,)
     return ret + (pool,)
 
 

@@ -35,7 +35,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "llmc_paged_tpu_torch.ops.dev.serving_runs",
             "llmc_paged_tpu_torch.ops.dev.probe_longctx",
             "llmc_paged_tpu_torch.ops.dev.probe_longrange",
-            "llmc_paged_tpu_torch.utils.spans"} <= set(
+            "llmc_paged_tpu_torch.utils.spans",
+            "llmc_paged_tpu_torch.models.decode_graphs"} <= set(
                 _port_modules())
     code = (
         "import importlib, sys\n"
@@ -71,7 +72,8 @@ def test_no_source_names_jax_or_the_jax_package():
             os.path.join(PKG, "csrc", "flash_attention.cu")} <= set(files)
     assert {os.path.join(PKG, "eval.py"), os.path.join(PKG, "train.py"),
             os.path.join(PKG, "utils", "dataloader.py"),
-            os.path.join(PKG, "utils", "spans.py")} <= set(files)
+            os.path.join(PKG, "utils", "spans.py"),
+            os.path.join(PKG, "models", "decode_graphs.py")} <= set(files)
     assert {os.path.join(PKG, "kv", "native.py"),
             os.path.join(PKG, "ops", "dev", "dump_chunk_trace.py"),
             os.path.join(PKG, "csrc", "block_manager.cpp")} <= set(files)
