@@ -2,9 +2,10 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the requests finished inside the window, drawn from the run's seed with
-the longest among them, is run through the plain reference
-(``reference/gpt2_ref.py``) over each prompt with the tokens the engine
-served. The numbers compared:
+the longest among them, is run through the plain reference (the family's
+``served_model`` at its ``REFERENCE`` precision, a module of
+``reference/``) over each prompt with the tokens the engine served, in
+full f32 (``reference.full_f32``). The numbers compared:
 
 * ``token_gap``: the widest gap, over every served token, by which the
   served token's reference logit lies below the reference's best logit
@@ -16,8 +17,8 @@ served. The numbers compared:
   log-softmax at that position.
 
 The control puts the reference in the program's place at one precision
-lower (``gpt2_ref.CONTROL``) and is read the same way: its argmax at each
-position, judged by the reference's logits, and its prompt logprobs.
+lower (the family's ``CONTROL``) and is read the same way: its argmax at
+each position, judged by the reference's logits, and its prompt logprobs.
 """
 
 from __future__ import annotations
@@ -27,8 +28,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from benchmarks.reference.gpt2_ref import (CONTROL, REFERENCE, ServedModel,
-                                           full_f32)
 from benchmarks.weights import seed64
 
 
@@ -75,21 +74,20 @@ def _prompt_lp(rows: torch.Tensor, prompt) -> torch.Tensor:
     return lp.gather(1, nxt[:, None])[:, 0]
 
 
-def compare(params32: Dict[str, torch.Tensor], NH: int, reqs: List,
-            prompt_logprobs: bool, control: bool = False) -> Dict:
-    """Readings of the served requests ``reqs`` against the reference:
-    {"program": {number: value}} and, with ``control``, {"control":
-    {number: value}} too. Runs in full f32."""
-    models = {"program": ServedModel(params32, NH, REFERENCE)}
-    if control:
-        models["control"] = ServedModel(params32, NH, CONTROL)
-    ref = models["program"]
-    out: Dict[str, Dict[str, float]] = {k: {"token_gap": 0.0} for k in models}
+def compare(reference, reqs: List, prompt_logprobs: bool,
+            control=None) -> Dict:
+    """Readings of the served requests ``reqs`` against the served model
+    ``reference``: {"program": {number: value}} and, with a ``control``
+    (the served model one precision lower), {"control": {number: value}}
+    too. Run it under ``reference.full_f32``."""
+    names = ["program"] + (["control"] if control is not None else [])
+    out: Dict[str, Dict[str, float]] = {k: {"token_gap": 0.0} for k in names}
     if prompt_logprobs:
         for k in out:
             out[k]["prompt_logprob_err"] = 0.0
     for r in reqs:
-        served, prows = ref.logits(r.prompt, r.generated, prompt_logprobs)
+        served, prows = reference.logits(r.prompt, r.generated,
+                                         prompt_logprobs)
         picks = torch.as_tensor(r.generated, dtype=torch.long,
                                 device=served.device)
         rd = out["program"]
@@ -100,8 +98,8 @@ def compare(params32: Dict[str, torch.Tensor], NH: int, reqs: List,
                                   dtype=torch.float64, device=served.device)
             rd["prompt_logprob_err"] = max(rd["prompt_logprob_err"], float(
                 (got - ref_lp).abs().max()))
-        if control:
-            c_served, c_rows = models["control"].logits(
+        if control is not None:
+            c_served, c_rows = control.logits(
                 r.prompt, r.generated, prompt_logprobs)
             cd = out["control"]
             cd["token_gap"] = max(cd["token_gap"], _gap(

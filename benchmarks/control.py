@@ -8,7 +8,7 @@ For each seed, in one process: one run of the cell at its own load with a
 short window, then its sample of served requests read against the
 reference twice, the program's served tokens (the lower reading) and the
 control's own picks, the reference computed one precision below the
-configuration's (the upper reading; ``reference/gpt2_ref.CONTROL``). One
+configuration's (the upper reading; the family's ``CONTROL``). One
 JSON line a seed, then a summary: for each number compared, the largest
 program reading, the smallest control reading and their ratio. A limit
 goes between the two (PERF.md gives the readings and the limits).

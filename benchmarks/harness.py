@@ -2,11 +2,18 @@
 file, driven by a traffic mix through ``InferenceEngine.run``, measured
 over a window, checked against the plain reference.
 
+What the run knows of the model comes from the configuration's family
+(``families/<model_type>.py``, found by the registry): the program's
+configs, the weights, the reference, the FLOPs a token needs, the
+kernels the trace is read for and the spans around the model's calls.
+
 The steps, in order:
- 1. f32 weights from the seed on the device (``weights.make``);
- 2. the engine, through the port's public API (``EngineConfig``,
-    ``PageConfig``, ``InferenceEngine``), handed those weights; the f32
-    copy is dropped (the reference draws it again after the window);
+ 1. f32 weights from the seed on the device (the family's
+    ``make_weights``);
+ 2. the engine, through the port's public API (``InferenceEngine``, with
+    the family's ``program_config`` and ``engine_config``), handed those
+    weights; the f32 copy is dropped (the reference draws it again after
+    the window);
  3. every CUDA source of the program built into the checkout's
     ``build/torch_kernels/`` (on its first run; later runs find them);
  4-5. the closed loop starts at once: its first requests warm the
@@ -45,18 +52,12 @@ from typing import Dict, List, Optional
 
 import torch
 
-from benchmarks import check, roofline, weights
+from benchmarks import check, weights
+from benchmarks.reference import full_f32
 from benchmarks.registry import Registry
-from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config, PageConfig
 from llmc_paged_tpu_torch.engine.engine import InferenceEngine
 from llmc_paged_tpu_torch.engine.scheduler import Request
 
-# kernels the per-layer readers attribute to the harness's spans: the
-# single-query int8 parts kernel (query tile 1, not normalized) and the
-# causal flash kernel of the prefill
-KERNELS = {"parts": r"parts_kernel<[^,]+, signed char, true, \d+, 1, \d+, "
-                    r"false",
-           "flash": r"flash_fwd_kernel"}
 # the window closes by itself this long after its end if no delivery
 # comes (an engine that stopped serving)
 CLOSE_GRACE_S = 60.0
@@ -68,44 +69,23 @@ def _log(msg: str) -> None:
     print(f"[bench] {msg}", file=sys.stderr, flush=True)
 
 
-def model_config(cfg: dict) -> GPT2Config:
-    return GPT2Config(max_seq_len=cfg["n_positions"],
-                      vocab_size=cfg["vocab_size"],
-                      num_layers=cfg["n_layer"], num_heads=cfg["n_head"],
-                      channels=cfg["n_embd"])
-
-
-def engine_config(cfg: dict, concurrency: int) -> EngineConfig:
-    s = cfg["serving"]
-    page = PageConfig(page_size=s["page_size"],
-                      num_pages=concurrency * s["pages_per_seq"]
-                      + s["spare_pages"],
-                      max_seqs=concurrency, pages_per_seq=s["pages_per_seq"],
-                      kv_dtype=s["kv_dtype"])
-    return EngineConfig(cache_mode="paged", page=page,
-                        param_dtype=s["param_dtype"],
-                        activation_dtype=s["activation_dtype"],
-                        prefill_param_dtype=s["prefill_param_dtype"],
-                        max_batch=concurrency, greedy=s["greedy"],
-                        decode_chunk=s["decode_chunk"])
-
-
 class Loop:
     """The closed loop, the window and the trace slice, driven from the
     engine's callbacks. ``deliveries`` holds one entry a materialization
     and kind (first tokens of a wave, or decode tokens, handed out between
     two feed polls): its time, the time of the delivery of its kind before
     it, output tokens, prompt tokens scored, the FLOPs its real tokens
-    needed, the feed poll and the kind."""
+    needed (the ``model`` config's family's ``flops``), the feed poll and
+    the kind."""
 
     def __init__(self, traffic, concurrency: int, seconds: float,
                  ramp_finished: int, model: dict, mix: dict,
                  trace_seconds: Optional[float], device: torch.device,
-                 clock=time.monotonic):
+                 clock=time.monotonic, registry: Optional[Registry] = None):
         self.traffic, self.concurrency = traffic, concurrency
         self.seconds, self.ramp_finished = seconds, ramp_finished
-        self.L, self.C = model["n_layer"], model["n_embd"]
-        self.V = model["vocab_size"]
+        self.token_flops = (registry or Registry()).family_of(model).flops(
+            model)
         self.score = bool(mix.get("prompt_logprobs", False))
         self.trace_seconds = trace_seconds
         self.device, self.clock = device, clock
@@ -161,12 +141,11 @@ class Loop:
         np_ = len(req.prompt)
         for k in range(k0, k0 + n):
             if k == 0:
-                flops += roofline.prefill_flops(
-                    self.L, self.C, self.V, np_, np_ if self.score else 1)
+                flops += self.token_flops.prefill(
+                    np_, np_ if self.score else 1)
                 prompt_tokens += np_ if self.score else 0
             else:
-                flops += roofline.decode_flops(self.L, self.C, self.V,
-                                               np_ + k)
+                flops += self.token_flops.decode(np_ + k)
         # a first token comes from an admission wave, later ones from
         # decode steps: each kind's deliveries are spread since the last
         # of the same kind (the engine hands a wave's first tokens out
@@ -259,9 +238,11 @@ class Loop:
         return t is not None and self.t_open <= t <= self.t_close
 
 
-def trace_summary(prof, spans, cfg: dict) -> Dict:
-    """Busy time, the window, the breakdown and the two kernels' bounds
-    and device time, read from the profiled slice."""
+def trace_summary(prof, spans, kernels: Dict[str, tuple]) -> Dict:
+    """Busy time, the window, the breakdown, and each of the family's
+    ``kernels`` (``{key: (regex, bound_s, expected)}``): its calls, the
+    calls its spans imply, its bound and its device time, read from the
+    profiled slice."""
     from benchmarks import trace_reader
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
@@ -271,11 +252,8 @@ def trace_summary(prof, spans, cfg: dict) -> Dict:
     finally:
         os.remove(path)
     tr = trace_reader.read_trace(events, top=10, gaps=10)
-    att = trace_reader.attribute(events, {k: re.compile(v)
-                                          for k, v in KERNELS.items()})
-    L, NH = cfg["n_layer"], cfg["n_head"]
-    HS = cfg["n_embd"] // NH
-    ps = cfg["serving"]["page_size"]
+    att = trace_reader.attribute(events, {k: re.compile(v[0])
+                                          for k, v in kernels.items()})
     recs = {(r["kind"], r["idx"]): r for r in spans.records}
     out = {"busy_s": tr["busy_ms"] / 1e3, "window_s": tr["window_ms"] / 1e3,
            "breakdown": {
@@ -283,11 +261,7 @@ def trace_summary(prof, spans, cfg: dict) -> Dict:
                               for k in tr["top_kernels"]],
                "idle_gaps": [[g["op"] or "none", g["ms"] / 1e3]
                              for g in tr["gaps"]]}}
-    for key, bound_fn in (
-            ("parts", lambda r: roofline.parts_call_bound_s(
-                r["lengths"], r["B"], NH, HS, ps)),
-            ("flash", lambda r: roofline.flash_call_bound_s(
-                r["lengths"], NH, HS))):
+    for key, (_, bound_fn, expected_fn) in kernels.items():
         calls = bound = time_us = 0.0
         expected = 0
         for span, (n, us) in att[key].items():
@@ -297,7 +271,7 @@ def trace_summary(prof, spans, cfg: dict) -> Dict:
             calls += n
             time_us += us
             bound += n * bound_fn(r)
-            expected += L * r.get("steps", 1)
+            expected += expected_fn(r)
         out[key] = {"calls": int(calls), "expected": int(expected),
                     "bound_s": bound, "time_s": time_us / 1e6}
         if key == "parts" and calls and calls != expected:
@@ -361,8 +335,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     mix = registry.mix(entry["traffic"])
     cell = registry.cell(workload)
     conc = int(cell["concurrency"])
+    family = registry.family_of(cfg)
     dev = torch.device(device)
-    gcfg = model_config(cfg)
 
     def phase(what: str) -> None:
         if dev.type == "cuda":
@@ -372,10 +346,10 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     phase("imports and CUDA")
     if dev.type == "cuda":
         build_kernels()
-    params32 = weights.make(cfg, seed, dev)
+    params32 = family.make_weights(cfg, seed, dev)
     phase("weights")
-    engine = InferenceEngine(params32, gcfg, engine_config(cfg, conc),
-                             device=dev)
+    engine = InferenceEngine(params32, family.program_config(cfg),
+                             family.engine_config(cfg, conc), device=dev)
     del params32
     phase("engine")
 
@@ -383,12 +357,13 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
         mix, cfg["vocab_size"], weights.seed64(seed), conc)
     loop = Loop(traffic, conc, seconds,
                 int(round(mix["ramp_finished_per_slot"] * conc)), cfg, mix,
-                cell["trace_seconds"] if trace else None, dev)
+                cell["trace_seconds"] if trace else None, dev,
+                registry=registry)
     spans = None
     if trace:
         loop.init_profiler()
         from benchmarks.spans import Spans
-        spans = Spans()
+        spans = Spans(family.span_targets())
         spans.install()
     phase("the ramp starts")
     try:
@@ -409,7 +384,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
               "deliveries": loop.deliveries, "requests": loop.requests,
               "stats": stats, "concurrency": conc, "trace": None}
     if trace and loop.prof is not None and loop.prof_state == "done":
-        record["trace"] = trace_summary(loop.prof, spans, cfg)
+        record["trace"] = trace_summary(loop.prof, spans,
+                                        family.kernels(cfg))
     loop.prof = None
 
     # the metrics this cell reports
@@ -432,11 +408,14 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     chk = mix["check"]
     reqs = check.sample(finished, seed, chk["served_values"],
                         chk["min_requests"], loop.score)
-    with torch.no_grad(), check.full_f32():
-        params32 = weights.make(cfg, seed, dev)
-        readings = check.compare(params32, cfg["n_head"], reqs, loop.score,
-                                 control=control)
+    with torch.no_grad(), full_f32():
+        params32 = family.make_weights(cfg, seed, dev)
+        reference = family.served_model(params32, cfg, family.REFERENCE)
+        ctrl = family.served_model(params32, cfg, family.CONTROL) \
+            if control else None
         del params32
+        readings = check.compare(reference, reqs, loop.score, control=ctrl)
+        del reference, ctrl
     ok, compared = check.verdict(readings["program"], cell["limits"])
     ok = ok and bool(reqs) and not loop.failed
 

@@ -1,2 +1,23 @@
 """The plain references the runs are compared with: plain PyTorch in f32,
 importing nothing of the program."""
+
+import contextlib
+
+import torch
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 products in full f32: TF32 off for cuBLAS and cuDNN."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.set_float32_matmul_precision(saved[2])

@@ -1,7 +1,8 @@
 """The plain GPT-2 reference of the serving cells: a forward pass in f32
-(TF32 off) in plain PyTorch, with the benchmark's own frozen copy of the
-arithmetic by which the served model derives its stored numbers from the
-f32 weights. It imports torch only: nothing of the program.
+(TF32 off: run it under ``reference.full_f32``) in plain PyTorch, with
+the benchmark's own frozen copy of the arithmetic by which the served
+model derives its stored numbers from the f32 weights. It imports torch
+only: nothing of the program.
 
 The serving mode it follows (a configuration's ``serving`` group):
 
@@ -27,7 +28,6 @@ int4 K and V.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -42,23 +42,6 @@ INT_MAX = {"int8": 127.0, "int4": 7.0}
 E4M3_MAX = 448.0
 LN_EPS = 1e-5
 GELU_SCALE = math.sqrt(2.0 / math.pi)
-
-
-@contextlib.contextmanager
-def full_f32():
-    """f32 products in full f32: TF32 off for cuBLAS and cuDNN."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32,
-             torch.get_float32_matmul_precision())
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved[0]
-        torch.backends.cudnn.allow_tf32 = saved[1]
-        torch.set_float32_matmul_precision(saved[2])
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:

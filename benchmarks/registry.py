@@ -9,6 +9,10 @@ mix, configuration or metric is a new file and no existing file changes:
     cells/<workload>.json    a cell's concurrency, trace slice and the
                              limits of its correctness comparison
     metrics/<metric>.py      a metric's ``compute(record)``
+    families/<model_type>.py a model family: everything the harness knows
+                             of a model (``families/gpt2.py`` lists it),
+                             found by a config file's ``model_type``
+                             (``DEFAULT_MODEL_TYPE`` where it has none)
 
 Lookups search the registry's directories in order, so a test can lay a
 directory of its own files over the benchmark's.
@@ -22,6 +26,8 @@ import os
 from typing import List, Sequence
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the family of a config file that names none
+DEFAULT_MODEL_TYPE = "gpt2"
 
 
 class Registry:
@@ -62,3 +68,11 @@ class Registry:
 
     def metric(self, name: str):
         return self._module("metrics", name)
+
+    def family(self, model_type: str):
+        return self._module("families", model_type)
+
+    def family_of(self, cfg: dict):
+        """The family of a configuration: its ``model_type``'s module. An
+        unknown type raises, naming the file looked for."""
+        return self.family(cfg.get("model_type", DEFAULT_MODEL_TYPE))

@@ -53,7 +53,8 @@ def test_read_trace_busy_window_and_gaps(tmp_path):
 def test_attribute_hands_kernels_to_their_spans(tmp_path):
     p = tmp_path / "t.json"
     p.write_text(json.dumps(_trace()))
-    from benchmarks.harness import KERNELS
+    from benchmarks.registry import Registry
+    KERNELS = Registry().family("gpt2").KERNELS
     got = trace_reader.attribute(str(p), {k: re.compile(v)
                                           for k, v in KERNELS.items()})
     assert got["parts"] == {("chunk", 0): [2, 50.0]}
