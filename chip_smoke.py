@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port (llmc_paged_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parallel-only | --mellum-only]
 
 Phases (any failed check raises, and the script exits non-zero):
   1. device: name, power limit, torch/CUDA versions; TF32 off;
@@ -235,6 +235,18 @@ Phases (any failed check raises, and the script exits non-zero):
      launches = L x steps on each kernel cell, 0 on the plain one; host
      and busy ms a step and idle share a cell, and the slopes in us a step
      per pool page and per live page.
+ 21. (run after phase 19, before phases 11 and 12) Mellum2-12B-A2.5B at
+     its published widths (benchmarks/configs/mellum2-12b-a2.5b-bf16.json):
+     the int8 multi-query parts wrapper at head_dim 128 at the code
+     cell's shapes (256 rows, a tile of the 8 query heads of each of 4
+     K/V heads, pages of 128, 72 a row), over a full layer's shuffled
+     pool and a sliding layer's ring (table s*R + j mod R, lower bounds
+     inside the window), against its plain version at phase 3's
+     tolerance, with its time beside the live bytes' bound; then one
+     engine link (bf16 weights drawn on the card, int8 KV, 16 rows of
+     1100-2105-token prompts, 33 new tokens): 32 chained steps, all
+     replayed as a CUDA graph, 28 int8 mq parts launches a step and no
+     other, the ring's pages and the routed rows a layer.
 Every kernel time is the lab harness's: CUDA events over launches queued
 behind a sleep kernel, the median of 3 runs.
 The line before the last is a JSON object {"kernels": [...]} (fifteen
@@ -1026,6 +1038,159 @@ def phase_cli(torch, pa, params32, cfg, device):
               f"modes: the streams differ: {modes}")
         log("  none, dense and paged: identical 32-token streams")
     return launches
+
+
+# ---- phase 21: Mellum 2 at the cell's shapes ---------------------------------
+
+MELLUM_CONFIG = "benchmarks/configs/mellum2-12b-a2.5b-bf16.json"
+MELLUM_ROWS, MELLUM_PPS = 256, 72       # the code cell's rows and pages a row
+
+
+def mellum_kernel_cases(torch, pa, cfg, device):
+    """The int8 multi-query parts wrapper at head_dim 128 as the code cell
+    calls it, against its plain version on the same tensors at phase 3's
+    tolerance: B = 256 rows of a query tile of G = 8 query heads over 4
+    K/V heads, pages of 128, 72 a row; a full layer (the managed pool's
+    18,436 pages, shuffled tables, lower bound 0) and a sliding layer (a
+    ring of 9 pages a row, table s*R + j mod R, each row's lower bound
+    inside the window as a chained step's is); lengths of a 2k-8k prompt
+    and up to 1k served tokens, some rows idle (length 0)."""
+    import random
+    from llmc_paged_tpu_torch.models import mellum_paged
+    B, NKV, G, HD, ps = (MELLUM_ROWS, cfg.num_kv_heads, cfg.group,
+                         cfg.head_dim, 128)
+    W = cfg.sliding_window
+    R = mellum_paged.ring_pages(W, ps)
+    rnd = random.Random(21)
+    lengths = [0 if b % 37 == 5 else rnd.randint(2049, ps * MELLUM_PPS)
+               for b in range(B)]
+    for kind in ("full", "sliding"):
+        sliding = kind == "sliding"
+        starts = [max(0, n - W + 1 + rnd.randint(0, 31)) if sliding and n
+                  else 0 for n in lengths]
+        P = B * R if sliding else B * MELLUM_PPS + 4
+        q, pool, tables, ln, st = make_case(
+            torch, B=B, NH=NKV, HS=HD, ps=ps, pps=MELLUM_PPS, P=P,
+            kv="int8", qd="bf16", lengths=lengths, starts=starts,
+            seed=2100 + sliding, device=device, KQ=G,
+            repeat_pages=sliding)
+        if sliding:
+            j = torch.arange(MELLUM_PPS, device=device)
+            tables = (torch.arange(B, device=device)[:, None] * R
+                      + j[None, :] % R).to(torch.int32)
+        got = run_parts(pa, q, pool, tables, ln, st)
+        ref = run_parts(pa, q, pool, tables, ln, st, plain=True)
+        torch.cuda.synchronize()
+        errs, ok = max_err(torch, got, ref)
+        idle = [b for b, n in enumerate(lengths) if n == 0]
+        empty = all(float(got[2][b].abs().max()) == 0.0 for b in idle)
+        live = sum(n - s for n, s in zip(lengths, starts))
+        nbytes = live * NKV * (2 * HD + 2 * 4)
+        us = device_ms(lambda: run_parts(pa, q, pool, tables, ln, st),
+                       iters=50) * 1e3
+        log(f"  mq int8/qbf16 hd{HD} {kind:7s} B={B} KQ={G} NKV={NKV} "
+            f"P={P}: max|d| acc {errs[0]:.3e} m {errs[1]:.3e} l "
+            f"{errs[2]:.3e} {'ok' if ok and empty else 'FAIL'}; kernel "
+            f"{us:.2f} us, bound {nbytes / PEAK_BYTES_S * 1e6:.2f} us "
+            f"({nbytes} B of live K/V and scales)")
+        check(ok and empty and all(bool(torch.isfinite(t).all())
+                                   for t in got),
+              f"mellum: hd{HD} int8 mq parts vs plain mismatch ({kind})")
+        del q, pool, got, ref
+
+
+def mellum_weights(torch, cfg, seed, device):
+    """Mellum's weights in bf16 on the card, every matrix N(0, 0.02)
+    drawn a slice at a time (one copy, no f32 twin), RMSNorm weights 1."""
+    from llmc_paged_tpu_torch.models import mellum
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    out = {}
+    for k, shp in mellum.param_shapes(cfg).items():
+        t = torch.empty(shp, dtype=torch.bfloat16, device=device)
+        if k in mellum.NORM_KEYS:
+            t.fill_(1.0)
+        else:
+            flat = t.view(-1)
+            for a in range(0, flat.numel(), 1 << 28):
+                b = min(a + (1 << 28), flat.numel())
+                flat[a:b] = torch.randn(b - a, generator=g,
+                                        device=device).mul_(0.02)
+        out[k] = t
+    return out
+
+
+def phase_mellum(torch, pa, device):
+    """Phase 21: Mellum2-12B-A2.5B at its published widths
+    (MELLUM_CONFIG): the hd128 int8 multi-query parts wrapper at the code
+    cell's shapes against its plain version, then one engine link (the
+    cell's serving: bf16 weights and activations, int8 KV pages of 128,
+    72 a row, chains of 32, greedy) of 16 rows whose prompts outgrow the
+    window: 33 new tokens a row, so 32 chained steps; the launch counts
+    reset just before the run give 28 int8 mq parts launches a step and
+    nothing else, every step replays as a CUDA graph."""
+    from llmc_paged_tpu_torch.config import (EngineConfig, MellumConfig,
+                                             PageConfig)
+    from llmc_paged_tpu_torch.engine.engine import InferenceEngine
+    from llmc_paged_tpu_torch.engine.scheduler import Request
+    from llmc_paged_tpu_torch.models import mellum_paged
+    with open(os.path.join(HERE, MELLUM_CONFIG)) as f:
+        cfg = MellumConfig.from_hf(json.load(f))
+    mellum_kernel_cases(torch, pa, cfg, device)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    params = mellum_weights(torch, cfg, 23, device)
+    B = 16
+    page = PageConfig(page_size=128, num_pages=B * MELLUM_PPS + 4,
+                      max_seqs=B, pages_per_seq=MELLUM_PPS, kv_dtype="int8")
+    eng = InferenceEngine(params, cfg, EngineConfig(
+        cache_mode="paged", page=page, param_dtype="bfloat16",
+        activation_dtype="bfloat16", max_batch=B, greedy=True,
+        decode_chunk=32), device=device)
+    lengths = [1100 + 67 * b for b in range(B)]
+    prompts = prompts_for(torch, B, lengths, cfg.vocab_size, 21, device)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=33)
+            for i, p in enumerate(prompts)]
+    log(f"  weights {sum(t.numel() for t in params.values()) / 1e9:.2f} B "
+        f"parameters in bf16, engine built: {time.monotonic() - t0:.1f} s")
+    reset_counts(pa)
+    t0 = time.monotonic()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    st = eng.stats
+    launches = {k: v for k, v in pa.LAUNCHES.items() if v}
+    L = cfg.num_layers
+    want = L * st["decode_steps"]
+    counts = torch.tensor(st["moe_routed_tokens"])
+    log(f"  {len(done)} rows of prompts {lengths[0]}-{lengths[-1]}, 33 new "
+        f"tokens each: {wall:.2f} s (first run, graphs captured); decode "
+        f"steps {st['decode_steps']}, graph steps "
+        f"{st['decode_graph_steps']}, launches {launches}, flash launches "
+        f"{flash_launches()}; kv_window_pages {st['kv_window_pages']}, "
+        f"kv_full_pages_peak {st['kv_full_pages_peak']}; routed rows a "
+        f"layer {int(counts[0].sum())}, largest expert over the mean "
+        f"{float((counts.max(1).values / counts.float().mean(1)).max()):.2f}"
+        f"; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(len(done) == B and all(len(r.generated) == 33 for r in done)
+          and all(0 <= t < cfg.vocab_size for r in done
+                  for t in r.generated),
+          "mellum: not every row finished with 33 tokens in range")
+    check(st["decode_steps"] == 32 and st["decode_graph_steps"] == 32,
+          f"mellum: {st['decode_steps']} decode steps, "
+          f"{st['decode_graph_steps']} replayed as a graph; want 32 and 32")
+    check(launches == {"paged_decode_attention_quant_parts_mq": want}
+          and flash_launches() == 0,
+          f"mellum: launches {launches}, want {want} int8 mq (L x "
+          f"{st['decode_steps']} steps) and nothing else")
+    check(st["kv_window_pages"] == B * mellum_paged.ring_pages(
+        cfg.sliding_window, 128)
+          and bool((counts.sum(1) == counts[0].sum()).all())
+          and int(counts[0].sum()) == cfg.top_k * (
+              sum(lengths) + B * st["decode_steps"]),
+          "mellum: ring pages or routed rows off")
+    del eng, params, done
+    torch.cuda.empty_cache()
 
 
 # ---- phase 13: the serving front ---------------------------------------------
@@ -2408,6 +2573,9 @@ def parallel_leg(torch, cfg, runs, ref, single_st, dp_want, xy, leg, n,
 # ---- phase 18: the serving front over TP ranks -------------------------------
 
 SERVE_TASK = PAR_TASKS + "serve_run"
+PHASE_21 = ("phase 21: Mellum2-12B-A2.5B at its published widths: the hd128 "
+            "int8 multi-query parts at the code cell's shapes, one engine "
+            "link")
 PHASE_18 = ("phase 18: the serving front over TP ranks (ServingEngine, "
             "HttpServingFront, --serve --mesh-model), GPT-2 124M at full "
             "width")
@@ -3365,6 +3533,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel-only", action="store_true",
                     help="phases 1, 2, 17 and 18 alone (e.g. on four "
                          "cards, where both add their NCCL legs)")
+    ap.add_argument("--mellum-only", action="store_true",
+                    help="phases 1, 2 and 21 alone (Mellum 2 at its "
+                         "published widths)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3409,6 +3580,15 @@ def main(argv=None) -> int:
         phase_parallel(torch, pa, card)
         phase(PHASE_18)
         phase_tp_serving(torch, card)
+        phase("done")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if args.mellum_only:
+        phase(PHASE_21)
+        phase_mellum(torch, pa, device)
         phase("done")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -3745,6 +3925,10 @@ def main(argv=None) -> int:
           "probe_longrange.py), GPT-2 1558M, 8 x (896 + 128) and 32 x "
           "(128 + 64)")
     phase_long_engines(torch, pa, device, card)
+
+    # 21. Mellum 2, host-timed, so also before any trace
+    phase(PHASE_21)
+    phase_mellum(torch, pa, device)
 
     # 11. the kernel lab (its main path: the sweeps), then its kernels
     # timed

@@ -63,6 +63,114 @@ class GPT2Config:
 
 
 @dataclasses.dataclass(frozen=True)
+class RopeGroup:
+    """The rotary embedding of one kind of layer: HF's ``rope_parameters``
+    entry. ``rope_type`` "default" (inv_freq = theta^(-2i/d)) or "yarn"
+    (``factor`` over ``original_max_position_embeddings``, ramp between
+    ``beta_fast`` and ``beta_slow`` rotations, cos and sin scaled by
+    ``attention_factor``, the ramp's ends floored/ceiled with
+    ``truncate``)."""
+
+    rope_type: str = "default"
+    rope_theta: float = 10000.0
+    factor: float = 1.0
+    original_max_position_embeddings: int = 0
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: Optional[float] = None
+    truncate: bool = True
+
+
+SLIDING, FULL = "sliding_attention", "full_attention"
+
+
+@dataclasses.dataclass(frozen=True)
+class MellumConfig:
+    """Mellum 2 (JetBrains' ``model_type`` "mellum"): RMSNorm pre-norm
+    blocks of grouped-query attention (``num_kv_heads`` K/V heads shared
+    by ``num_heads // num_kv_heads`` query heads, ``head_dim`` wide, no
+    bias), each layer sliding (keys within ``sliding_window`` positions)
+    or full by ``layer_types``, with a rope group a kind; every layer's
+    MLP is a sparse mixture of ``num_experts`` SwiGLU experts of width
+    ``expert_width``, ``top_k`` a token under a softmax router
+    (renormalized with ``norm_topk_prob``); untied embedding and lm_head.
+    A published model's numbers come from its config.json (``from_hf``;
+    Mellum2-12B-A2.5B's is benchmarks/configs/mellum2-12b-a2.5b-bf16.json).
+    """
+
+    vocab_size: int
+    num_layers: int
+    channels: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    layer_types: tuple
+    sliding_window: int
+    rope_sliding: RopeGroup
+    rope_full: RopeGroup
+    num_experts: int
+    top_k: int
+    expert_width: int
+    norm_topk_prob: bool
+    rms_eps: float
+    max_seq_len: int              # max_position_embeddings
+
+    def __post_init__(self):
+        if len(self.layer_types) != self.num_layers or \
+                set(self.layer_types) - {SLIDING, FULL}:
+            raise ValueError(f"layer_types: {self.num_layers} entries of "
+                             f"{SLIDING!r} or {FULL!r}")
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError("num_heads must be a multiple of num_kv_heads")
+
+    @property
+    def group(self) -> int:
+        """Query heads a K/V head serves."""
+        return self.num_heads // self.num_kv_heads
+
+    def sliding(self, i: int) -> bool:
+        return self.layer_types[i] == SLIDING
+
+    @staticmethod
+    def from_hf(d: dict) -> "MellumConfig":
+        """From HF's config.json keys (JetBrains/Mellum2-*'s)."""
+        def group(g):
+            return RopeGroup(**{f.name: g[f.name]
+                                for f in dataclasses.fields(RopeGroup)
+                                if f.name in g})
+        rp = d["rope_parameters"]
+        return MellumConfig(
+            vocab_size=d["vocab_size"], num_layers=d["num_hidden_layers"],
+            channels=d["hidden_size"], num_heads=d["num_attention_heads"],
+            num_kv_heads=d["num_key_value_heads"], head_dim=d["head_dim"],
+            layer_types=tuple(d["layer_types"]),
+            sliding_window=d["sliding_window"],
+            rope_sliding=group(rp[SLIDING]), rope_full=group(rp[FULL]),
+            num_experts=d["num_experts"], top_k=d["num_experts_per_tok"],
+            expert_width=d["moe_intermediate_size"],
+            norm_topk_prob=d["norm_topk_prob"], rms_eps=d["rms_norm_eps"],
+            max_seq_len=d["max_position_embeddings"])
+
+    @staticmethod
+    def tiny(num_layers: int = 4, sliding_window: int = 16,
+             original_max: int = 16, vocab_size: int = 256) -> "MellumConfig":
+        """Small config for tests: 3 sliding layers a full one, 8 query
+        and 2 K/V heads of 16, 8 experts of width 32, 2 a token, and a
+        YaRN group whose original length the tests' contexts outgrow."""
+        return MellumConfig(
+            vocab_size=vocab_size, num_layers=num_layers, channels=64,
+            num_heads=8, num_kv_heads=2, head_dim=16,
+            layer_types=tuple(FULL if i % 4 == 3 else SLIDING
+                              for i in range(num_layers)),
+            sliding_window=sliding_window,
+            rope_sliding=RopeGroup("default", 10000.0),
+            rope_full=RopeGroup("yarn", 10000.0, 4.0, original_max, 32.0,
+                                1.0, None),
+            num_experts=8, top_k=2, expert_width=32, norm_topk_prob=True,
+            rms_eps=1e-6, max_seq_len=4096)
+
+
+@dataclasses.dataclass(frozen=True)
 class PageConfig:
     """KV page-pool geometry. ``page_size`` is tokens per page;
     ``num_pages`` the pool size; ``max_seqs`` bounds concurrent sequences;

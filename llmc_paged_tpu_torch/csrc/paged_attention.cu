@@ -12,7 +12,7 @@
 //
 // Contract: the parts contract of paged_attention_parts.cuh with KQ = 1:
 // q (B, NH, HS) f32/bf16 → acc (B, NH, HS), m (B, NH), l (B, NH), all f32
-// and UNNORMALIZED. HS = 64.
+// and UNNORMALIZED. HS = 64 or 128.
 //
 // Bound on the H100: bytes. At the GPT-2 124M serving shapes (B=8, NH=12,
 // HS=64, ps=128, 130-255 tokens a row) a call reads 2.8 MB (int8 K/V and
@@ -30,7 +30,7 @@
 #include "paged_attention_parts.cuh"
 
 // q_kind: KIND_F32 | KIND_BF16. kv_kind: KIND_F32 | KIND_BF16 (ks/vs
-// ignored) | KIND_I8 (ks/vs required). HS: 64; ps: a multiple of 4.
+// ignored) | KIND_I8 (ks/vs required). HS: 64 or 128; ps: a multiple of 4.
 // Returns cudaGetLastError() after the launch; an unsupported kind, head
 // size or page size returns cudaErrorInvalidValue without launching.
 extern "C" int flash_decode_parts(int q_kind, int kv_kind, const void* q,

@@ -5,14 +5,16 @@
 // of llmc_paged_tpu/ops/paged_attention.py (float pools, and int8 pools
 // with pinned scales or scale_dma), entries
 // paged_decode_attention[_quant]_parts_mq. It serves speculative verify
-// (KQ = spec_k) and prefix-cache suffix prefill (KQ = the suffix bucket).
+// (KQ = spec_k), prefix-cache suffix prefill (KQ = the suffix bucket) and
+// Mellum's grouped-query decode (KQ = the 8 query heads of a K/V head,
+// NH = the 4 K/V heads, HS = 128: two tiles of 4, launched side by side).
 // The TPU kernel's T <= 64 suffix cut (a VMEM limit) does not exist here:
 // any KQ is taken, in tiles of QTILE = 4 queries.
 //
 // Contract: the parts contract of paged_attention_parts.cuh: q
 // (B, KQ, NH, HS) f32/bf16, every query attending the same committed range
 // [start, len) with no causal mask inside the pool → acc (B, KQ, NH, HS),
-// m (B, KQ, NH), l (B, KQ, NH), all f32 and UNNORMALIZED. HS = 64; the
+// m (B, KQ, NH), l (B, KQ, NH), all f32 and UNNORMALIZED. HS = 64 or 128; the
 // page size a multiple of 4.
 //
 // Bound on the H100: at the spec-verify shapes (B=8, KQ=4, NH=12, HS=64,
@@ -34,7 +36,7 @@
 #include "paged_attention_parts.cuh"
 
 // q_kind: KIND_F32 | KIND_BF16. kv_kind: KIND_F32 | KIND_BF16 (ks/vs
-// ignored) | KIND_I8 (ks/vs required). HS: 64; ps: a multiple of 4.
+// ignored) | KIND_I8 (ks/vs required). HS: 64 or 128; ps: a multiple of 4.
 // Returns cudaGetLastError() after the launch; an unsupported kind, head
 // size or page size returns cudaErrorInvalidValue without launching.
 extern "C" int flash_decode_parts_mq(int q_kind, int kv_kind, const void* q,

@@ -177,9 +177,15 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
              int NH, int ps, int pps, float scale, Plane pl) {
   constexpr int THREADS = WARPS * 32;
   constexpr int DPL = HS / GROUP;       // head dims a lane owns
-  // V is loaded with K, except for f32 pools under a query tile, where
-  // acc and the K and V tiles would not fit the registers together
-  constexpr bool EARLY_V = QTILE == 1 || sizeof(KV) < 4;
+  // V is loaded with K, except under a query tile for f32 pools, and for
+  // bf16 pools at head_dim 128, where acc and the K and V tiles would not
+  // fit the registers together
+  constexpr bool EARLY_V =
+      QTILE == 1 || sizeof(KV) == 1 || (sizeof(KV) < 4 && HS == 64);
+  // at head_dim 128 the query tiles of a (row, head) are the grid's
+  // fastest axis: the tiles that walk the same pages run side by side,
+  // and every walk after the first reads them from L2
+  constexpr bool TILES_FIRST = HS == 128;
   using VT = typename Vec<KV>::T;
   // q, each lane group's 16 head dims padded to 20 floats so that the 4
   // groups' float4 reads fall on distinct banks
@@ -187,7 +193,8 @@ parts_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pages,
   __shared__ float acc_s[WARPS][QTILE][HS];
   __shared__ float m_s[WARPS][QTILE], l_s[WARPS][QTILE];
 
-  const int b = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * QTILE;
+  const int b = TILES_FIRST ? blockIdx.z : blockIdx.x, h = blockIdx.y;
+  const int q0 = (TILES_FIRST ? blockIdx.x : blockIdx.z) * QTILE;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int dg = lane % GROUP, tg = lane / GROUP;
 
@@ -382,12 +389,16 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          int ps, int pps, float scale, cudaStream_t stream,
                          Plane pl) {
   // the smem q tile and acc are sized by the head size: one instance a
-  // head size, 64 (every GPT-2 size's); another is one more case here and
-  // in the wrapper
-  if (HS != 64 || ps < VEC || ps % VEC != 0 || B < 1 || KQ < 1 || NH < 1 ||
-      pps < 1 || (PLANE && (pl.L < 1 || pl.P < 1)))
+  // head size, 64 (every GPT-2 size's) and, outside the normalized and
+  // lab instances, 128 (Mellum's); another is one more case here and in
+  // the wrapper
+  constexpr bool WIDE = !NORM && !PLANE;
+  if ((HS != 64 && !(WIDE && HS == 128)) || ps < VEC || ps % VEC != 0 ||
+      B < 1 || KQ < 1 || NH < 1 || pps < 1 ||
+      (PLANE && (pl.L < 1 || pl.P < 1)))
     return cudaErrorInvalidValue;
-  const dim3 grid(B, NH, (KQ + QTILE - 1) / QTILE);
+  const int tiles = (KQ + QTILE - 1) / QTILE;
+  dim3 grid(B, NH, tiles);
   const auto args = [&](auto kern, int warps) {
     kern<<<grid, warps * 32, 0, stream>>>(
         static_cast<const QT*>(q), static_cast<const KV*>(k),
@@ -403,13 +414,27 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   // suffix-prefill shapes, PERF.md §6). One tile (spec verify, the
   // single-query kernel) keeps 8 warps: one 32-token chunk each at the
   // serving lengths.
-  if constexpr (QTILE > 1) {
-    if (KQ > QTILE) {
-      args(parts_kernel<QT, KV, QUANT, 64, QTILE, 4, NORM, PLANE>, 4);
+  // A group of 8 query heads at head_dim 128 is two tiles of 4: a tile
+  // of 8 would hold 256 accumulators a lane, more registers than a
+  // thread has.
+  const auto run = [&](auto hs) {
+    constexpr int H = decltype(hs)::value;
+    if (H == 128) grid = dim3(tiles, NH, B);    // the kernel's TILES_FIRST
+    if constexpr (QTILE > 1) {
+      if (KQ > QTILE) {
+        args(parts_kernel<QT, KV, QUANT, H, QTILE, 4, NORM, PLANE>, 4);
+        return;
+      }
+    }
+    args(parts_kernel<QT, KV, QUANT, H, QTILE, 8, NORM, PLANE>, 8);
+  };
+  if constexpr (WIDE) {
+    if (HS == 128) {
+      run(std::integral_constant<int, 128>{});
       return cudaGetLastError();
     }
   }
-  args(parts_kernel<QT, KV, QUANT, 64, QTILE, 8, NORM, PLANE>, 8);
+  run(std::integral_constant<int, 64>{});
   return cudaGetLastError();
 }
 

@@ -63,6 +63,15 @@ the engine's ``DecodeGraphs`` captures every chain length it can ask for
 at the first such chain, and ``stats["decode_graph_steps"]`` counts the
 steps that replayed.
 
+Model families: the config's type chooses the paged model module the
+engine calls (``self._paged``): ``models/gpt2_paged`` for a GPT2Config,
+``models/mellum_paged`` for a MellumConfig (bf16 or f32 weights taken
+as they are, a full-layer pool beside the sliding layers' window rings,
+the routing counter read into ``stats``). Mellum serves the paged mode
+alone: the "none" and "dense" modes, speculative decoding, prefix
+caching, tensor parallelism and ``run(window=...)`` raise a ValueError
+naming the family.
+
 Tensor parallelism (EngineConfig.mesh_shape, ``{"model": m}`` or
 ``{"data": d, "model": m}``; parallel/sharding.py): the engine runs in
 each rank of a torch.distributed group of d·m ranks, on the rank's card
@@ -86,11 +95,16 @@ import numpy as np
 import torch
 
 from llmc_paged_tpu_torch import resolve_device
-from llmc_paged_tpu_torch.config import EngineConfig, GPT2Config, PageConfig
+from llmc_paged_tpu_torch.config import (
+    EngineConfig,
+    GPT2Config,
+    MellumConfig,
+    PageConfig,
+)
 from llmc_paged_tpu_torch.engine.scheduler import Request, Scheduler, State
 from llmc_paged_tpu_torch.kv import native
 from llmc_paged_tpu_torch.kv.layouts import init_pool, to_device, token_coords
-from llmc_paged_tpu_torch.models import gpt2, gpt2_paged
+from llmc_paged_tpu_torch.models import gpt2, gpt2_paged, mellum, mellum_paged
 from llmc_paged_tpu_torch.models.decode_graphs import DecodeGraphs
 from llmc_paged_tpu_torch.ops.int8 import quantize_params
 from llmc_paged_tpu_torch.parallel import sharding
@@ -340,6 +354,37 @@ class InferenceEngine:
         if device is None and econf.mesh_shape:
             device = f"cuda:{sharding.local_rank()}"
         self.device = resolve_device(device)
+        self.use_kernel = use_kernel
+        self.native_manager = native_manager
+        self.stats: Dict[str, object] = {}
+        # live snapshot for long-lived serving runs (self.stats is written
+        # only when run() returns): rebuilt as a whole dict at every
+        # scheduler iteration, so readers on other threads never see a
+        # partial update; host bookkeeping only
+        self.live_stats: Dict[str, float] = {}
+        # the pool is kept across run() calls: stale contents are never
+        # read (tables and lengths only cover tokens of the current run)
+        self._pool_cache = None
+        # prefix caching: the manager persists across run() calls together
+        # with the pool whose pages it describes
+        self._prefix_mgr = None
+        # CUDA graphs of the greedy chained step, over the pool above
+        self._decode_graphs = DecodeGraphs(_chain_lengths(econf.decode_chunk))
+        self.mesh = None
+        self._paged = gpt2_paged
+        if isinstance(cfg, MellumConfig):
+            if self.device.type == "cuda" and econf.param_dtype != "bfloat16":
+                raise ValueError(
+                    "the Mellum family is served in bfloat16 on the card (its "
+                    "grouped expert products take bf16), got param_dtype "
+                    f"{econf.param_dtype!r}")
+            self._paged = mellum_paged
+            self._model = mellum_paged.MellumModel()
+            self.params = mellum.prepare_params(
+                params, cfg, _DTYPES[econf.param_dtype], self.device)
+            self._prefill_params = None
+            self._decode_params = self._prompt_params = self.params
+            return
         quantized = str(params["wte"].dtype).endswith("int8")
         if econf.prefill_param_dtype is not None:
             if econf.prefill_param_dtype != "bfloat16":
@@ -360,7 +405,6 @@ class InferenceEngine:
         # under tensor parallelism this rank's shard, prepared from the
         # caller's FLOAT params in the TP layout (and quantized there) on
         # the host, so that only the shard reaches the rank's device
-        self.mesh = None
         self._model = gpt2_paged.SINGLE
         self._decode_params = self.params
         self._prompt_params = self._prefill_params or self.params
@@ -380,22 +424,6 @@ class InferenceEngine:
                     device=self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.use_kernel = use_kernel
-        self.native_manager = native_manager
-        self.stats: Dict[str, object] = {}
-        # live snapshot for long-lived serving runs (self.stats is written
-        # only when run() returns): rebuilt as a whole dict at every
-        # scheduler iteration, so readers on other threads never see a
-        # partial update; host bookkeeping only
-        self.live_stats: Dict[str, float] = {}
-        # the pool is kept across run() calls: stale contents are never
-        # read (tables and lengths only cover tokens of the current run)
-        self._pool_cache = None
-        # prefix caching: the manager persists across run() calls together
-        # with the pool whose pages it describes
-        self._prefix_mgr = None
-        # CUDA graphs of the greedy chained step, over the pool above
-        self._decode_graphs = DecodeGraphs(_chain_lengths(econf.decode_chunk))
 
     def _whole_model(self, params, quantized: bool) -> None:
         """``self.params`` (and the bf16 prefill copy) on the device."""
@@ -419,6 +447,21 @@ class InferenceEngine:
 
     def _check_config(self) -> None:
         econf, page = self.econf, self.econf.page
+        if isinstance(self.cfg, MellumConfig):
+            off = [name for name, on in (
+                (f"cache_mode {econf.cache_mode!r}",
+                 econf.cache_mode != "paged"),
+                ("spec_k", econf.spec_k >= 2),
+                ("prefix_cache", page.prefix_cache),
+                ("mesh_shape", bool(econf.mesh_shape)),
+                (f"param_dtype {econf.param_dtype!r}",
+                 econf.param_dtype not in _DTYPES),
+                ("prefill_param_dtype",
+                 econf.prefill_param_dtype is not None)) if on]
+            if off:
+                raise ValueError(
+                    f"the Mellum family is served in paged mode with float "
+                    f"weights only: {', '.join(off)} is not supported")
         if econf.cache_mode not in ("none", "dense", "paged"):
             raise ValueError(f"cache_mode {econf.cache_mode!r}")
         if econf.spec_k >= 2 and not econf.greedy:
@@ -674,6 +717,10 @@ class InferenceEngine:
             pool = sharding.init_tp_pool(self.cfg, page, self.mesh,
                                          dtype=page.kv_dtype,
                                          device=self.device)
+        elif pool is None and self._paged is mellum_paged:
+            pool = mellum_paged.init_pool(self.cfg, page, dtype=page.kv_dtype,
+                                          device=self.device,
+                                          max_seqs=max_seqs)
         elif pool is None:
             pool = init_pool(self.cfg, page, dtype=page.kv_dtype,
                              device=self.device)
@@ -717,6 +764,10 @@ class InferenceEngine:
              on_tokens) -> List[Request]:
         cfg, econf = self.cfg, self.econf
         page = econf.page
+        if window is not None and self._paged is mellum_paged:
+            raise ValueError("run(window=...) is not supported for the "
+                             "Mellum family: its sliding layers have their "
+                             "own window, its full layers keep every page")
         window = _check_window(window, cfg)
         sampler = sampler or self._default_sampler()
         if econf.spec_k >= 2 and not sampler.greedy:
@@ -769,6 +820,9 @@ class InferenceEngine:
         # the pool is taken only after every request validated: a
         # ValueError above keeps the pool cache
         mgr, pool = self._paged_state()
+        windowed = self._paged is mellum_paged
+        if windowed:
+            pool.moe_counts.zero_()    # the run's routing, read at its end
         B = econf.max_batch
         pps = page.pages_per_seq
         t_start = time.monotonic()
@@ -995,6 +1049,10 @@ class InferenceEngine:
                 pg, sl = token_coords(torch.from_numpy(tables_g),
                                       torch.from_numpy(pos), page.page_size,
                                       torch.from_numpy(valid), page.num_pages)
+                # a windowed family's prefill writes each row's window
+                # ring, found by the row's slot
+                rows_kw = ({"rows": torch.tensor([s for s, _ in group])}
+                           if windowed else {})
                 plp_rows = [(i, req) for i, (slot, req) in enumerate(group)
                             if req.prompt_logprobs
                             and not req.prompt_logprob_values
@@ -1015,11 +1073,12 @@ class InferenceEngine:
                     # scoring rows take the full (Bg, T, V) logits, the
                     # next-token logprobs are taken on the device and
                     # fetched once for the wave
-                    full, pool = gpt2_paged.prefill_paged(
+                    full, pool = self._paged.prefill_paged(
                         self._prompt_params,
                         torch.from_numpy(xs), pg, sl, pool, cfg,
                         last_pos=None,
-                        use_kernel=self.use_kernel)             # (Bg, T, V)
+                        use_kernel=self.use_kernel,
+                        **rows_kw)                              # (Bg, T, V)
                     logits, plp_d = _prefill_plp_extract(full, xs, valid,
                                                          last)
                     del full
@@ -1029,12 +1088,12 @@ class InferenceEngine:
                         req.prompt_logprob_values = [
                             float(v) for v in plp[i, : len(req.prompt) - 1]]
                 else:
-                    logits, pool = gpt2_paged.prefill_paged(
+                    logits, pool = self._paged.prefill_paged(
                         self._prompt_params,
                         torch.from_numpy(xs), pg, sl, pool, cfg,
                         last_pos=torch.from_numpy(last),
                         use_kernel=self.use_kernel,
-                        model=self._model)                      # (Bg, V)
+                        model=self._model, **rows_kw)           # (Bg, V)
                 if prefix_on:
                     # publish this wave's full prompt pages only now, after
                     # the call that writes their K/V is queued (a same-wave
@@ -1446,7 +1505,7 @@ class InferenceEngine:
                             dslots = to_device(torch.tensor(
                                 [s for s, _ in deferred[2]]), dev)
                             link_first[dslots] = deferred[0]
-                    res = gpt2_paged.decode_chunk_paged(
+                    res = self._paged.decode_chunk_paged(
                         self._decode_params, link_first,
                         torch.from_numpy(pos0),
                         torch.from_numpy(pgs), torch.from_numpy(sls),
@@ -1560,7 +1619,7 @@ class InferenceEngine:
                         _validate_indices(page, tables, pg[None], sl[None],
                                           lengths)
                     with span("engine.step"):
-                        logits, pool = gpt2_paged.decode_step_paged(
+                        logits, pool = self._paged.decode_step_paged(
                             self._decode_params, torch.from_numpy(toks),
                             torch.from_numpy(wpe_pos), torch.from_numpy(pg),
                             torch.from_numpy(sl), torch.from_numpy(tables),
@@ -1637,6 +1696,8 @@ class InferenceEngine:
             "decode_graph_steps": self._decode_graphs.steps - graph_steps0,
             "suffix_prefills": suffix_prefills,
         }
+        if windowed:
+            self.stats.update(mellum_paged.run_stats(pool, peak_pages))
         if use_spec:
             # spec_steps counts S per row per link; spec_tok_per_step is
             # committed tokens per verify step (overshoot included): the

@@ -40,6 +40,8 @@ class PagePool:
     """Per-layer float K/V page buffers: ``k``/``v`` are length-L lists of
     (P, NH, HS, page_size) tensors."""
 
+    quant = False
+
     def __init__(self, k: List[torch.Tensor], v: List[torch.Tensor]):
         self.k, self.v = list(k), list(v)
 
@@ -62,6 +64,8 @@ class PagePool:
 class QuantPagePool(PagePool):
     """INT8 K/V pages (P, NH, HS, ps) with f32 scales (P, NH, ps) per
     layer."""
+
+    quant = True
 
     def __init__(self, k, v, k_scale, v_scale):
         super().__init__(k, v)

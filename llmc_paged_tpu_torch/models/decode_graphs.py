@@ -93,19 +93,25 @@ class DecodeGraphs:
         return buf
 
     def graph(self, key: Tuple, steps: int, step: Callable[[int], None],
-              restart: Callable[[], None], device):
+              restart: Callable[[], None], device,
+              keep: Sequence[torch.Tensor] = ()):
         """The graph of ``key`` + (steps,). At its first use it captures
         it and every chunk length not captured for ``key``: ``step(k)``
         is one step of a k-step link and ``restart()`` resets the step
-        index before each warm-up step."""
+        index before each warm-up step. ``keep``: device tensors the
+        step adds to (a counter) that its warm-up steps must leave as
+        they were."""
         g = self._graphs.get(key + (steps,))
         if g is not None:
             return g
         with span("model.capture"), torch.cuda.device(device):
+            saved = [t.clone() for t in keep]
             for k in sorted({steps, *self.chunks}, reverse=True):
                 if key + (k,) not in self._graphs:
                     self._graphs[key + (k,)] = self._capture(
                         lambda k=k: step(k), restart)
+            for t, s in zip(keep, saved):
+                t.copy_(s)
         return self._graphs[key + (steps,)]
 
     def _capture(self, fn: Callable[[], None], restart: Callable[[], None]):

@@ -76,17 +76,62 @@ from llmc_paged_tpu_torch.utils.spans import span
 
 
 def _dev(params) -> torch.device:
-    return params["wpe"].device
+    return next(iter(params.values())).device
 
 
 class SingleDevice:
     """The model pieces of a forward on one device (the whole model):
     ``attend(q, k, v)`` returns the heads (..., NH, HS) and ``block``
-    joins them into the (..., C) that attproj takes."""
+    joins them into the (..., C) that attproj takes.
+
+    The chained decode step (``_chain_step``) reads a model through the
+    ``chain_*`` pieces below; GPT-2's are these, and another family's
+    model object gives its own (models/mellum_paged.py). ``graphs``: its
+    chain step may replay as a CUDA graph (``graph_eligible``)."""
+
+    graphs = True
 
     @staticmethod
     def heads(cfg: GPT2Config) -> int:
         return cfg.num_heads
+
+    def kv_heads(self, cfg) -> int:
+        """The heads a token's K/V holds (the chain's tails)."""
+        return self.heads(cfg)
+
+    @staticmethod
+    def compute_dtype(params) -> torch.dtype:
+        return params["wpe"].dtype
+
+    @staticmethod
+    def layer_stack(params):
+        return gpt2._layer_stack(params)
+
+    def chain_inputs(self, params, toks, pos, window: int, cfg, pool):
+        """(x, ctx) of a chained step at positions ``pos``: the embedding
+        (wpe clamped to the window's last row) and what its layers read,
+        here the window's lower bounds, one for every layer."""
+        wpe_pos = torch.clamp(pos, max=window - 1)
+        starts = torch.clamp(pos + 1 - window, min=0)
+        return self.embed(params, toks, wpe_pos), starts
+
+    @staticmethod
+    def chain_read(ctx, tables, pool, i: int):
+        """(block table, lower bounds) layer ``i`` reads the pool with."""
+        return tables, ctx
+
+    def chain_block(self, x, stack, i: int, cfg, attend, ctx):
+        return self.block(x, gpt2._layer(stack, i), cfg, attend)
+
+    @staticmethod
+    def commit_coords(pool, pages, slots, positions0, K: int):
+        """Layer i -> the (pages, slots) a link's tails commit to."""
+        return lambda i: (pages, slots)
+
+    @staticmethod
+    def step_counters(pool):
+        """The device counters a chained step adds to (none here)."""
+        return ()
 
     @staticmethod
     def embed(params, tokens, wpe_pos):
@@ -185,13 +230,21 @@ def _chunk_attention(q, pool_l, tail_k, tail_v, block_tables, lengths_pool,
     """Decode-chunk attention: the read-only pool prefix (paged parts)
     merged with the in-flight tail (rows [0, j] valid).
 
-    q (B, NH, HS); tail_k/tail_v (K, B, NH, HS); lengths_pool = pos0
-    (completed tokens); starts = window lower bounds for the current
-    position; j the step index, a 0-d device tensor. Returns (B, NH, HS)
-    in q.dtype."""
-    B, NH, HS = q.shape
+    q (B, NH, HS), or grouped-query (B, G, NKV, HS): the G queries of a
+    K/V head, read through the multi-query parts kernel with the group
+    as its query tile, so a page is walked once a group; tail_k/tail_v
+    (K, B, NKV, HS); lengths_pool = pos0 (completed tokens); starts =
+    window lower bounds for the current position; j the step index, a
+    0-d device tensor. Returns q's shape in q.dtype."""
+    grouped = q.dim() == 4
+    HS = q.shape[-1]
     K = tail_k.shape[0]
-    if use_kernel:
+    if grouped:
+        parts = ((paged_decode_attention_quant_parts_mq if quant
+                  else paged_decode_attention_parts_mq) if use_kernel
+                 else (paged_decode_attention_quant_parts_mq_ref if quant
+                       else paged_decode_attention_parts_mq_ref))
+    elif use_kernel:
         parts = (paged_decode_attention_quant_parts if quant
                  else paged_decode_attention_parts)
     else:
@@ -201,15 +254,19 @@ def _chunk_attention(q, pool_l, tail_k, tail_v, block_tables, lengths_pool,
 
     qf = q.float()
     scale = float(torch.rsqrt(torch.tensor(float(HS))))
-    scores = torch.einsum("bhd,kbhd->bhk", qf, tail_k.float()) * scale
+    scores = torch.einsum("bghd,kbhd->bghk" if grouped else "bhd,kbhd->bhk",
+                          qf, tail_k.float()) * scale
     t_idx = torch.arange(K, device=q.device, dtype=torch.int32)
     pos_t = pos0[:, None] + t_idx[None, :]            # (B, K) absolute pos
     mask = ((t_idx <= j)[None, :] & (pos_t >= starts[:, None]))[:, None, :]
+    if grouped:
+        mask = mask[:, None]
     scores = torch.where(mask, scores, NEG_INF)
     m_t = scores.amax(dim=-1)                         # (B, NH)
     p = torch.where(mask, torch.exp(scores - m_t[..., None]), 0.0)
     l_t = p.sum(dim=-1)
-    acc_t = torch.einsum("bhk,kbhd->bhd", p, tail_v.float())
+    acc_t = torch.einsum("bghk,kbhd->bghd" if grouped else "bhk,kbhd->bhd",
+                         p, tail_v.float())
     return _merge_parts(acc_p, m_p, l_p, acc_t, m_t, l_t, q.dtype)
 
 
@@ -296,20 +353,19 @@ def _chain_step(params, stack, st: _ChainState, K: int, pool, cfg,
     K times."""
     jj = st.j.view(1)
     pos = st.pos0 + st.j
-    wpe_pos = torch.clamp(pos, max=window - 1)
-    starts = torch.clamp(pos + 1 - window, min=0)
-    x = model.embed(params, st.toks, wpe_pos)
+    x, ctx = model.chain_inputs(params, st.toks, pos, window, cfg, pool)
     for i in range(cfg.num_layers):
         tk, tv = st.tails[0, i, :K], st.tails[1, i, :K]
 
         def attend(q, k, v, i=i, tk=tk, tv=tv):
             tk.index_copy_(0, jj, k[None].to(cdtype).float())
             tv.index_copy_(0, jj, v[None].to(cdtype).float())
+            tables, starts = model.chain_read(ctx, st.tables, pool, i)
             return _chunk_attention(
-                q.contiguous(), pool.layer(i), tk, tv, st.tables, st.pos0,
+                q.contiguous(), pool.layer(i), tk, tv, tables, st.pos0,
                 starts, st.pos0, st.j, use_kernel, quant)
 
-        x = model.block(x, gpt2._layer(stack, i), cfg, attend)
+        x = model.chain_block(x, stack, i, cfg, attend, ctx)
     logits = model.logits(x, params, cfg)
     toks = pick(logits)
     st.out[:K].index_copy_(0, jj, toks[None])
@@ -326,10 +382,11 @@ def graph_eligible(device, use_kernel: bool, rng, pen_counts, model) -> bool:
     """Whether a decode_chunk_paged call replays a CUDA graph of its step:
     on the card, through the kernels, greedy (a sampled chain's
     torch.Generator is not registered with a graph), with no penalty
-    plane, on the one-device model (a tensor-parallel step holds
-    collectives). Every other call runs the step eagerly."""
+    plane, on a one-device model (``graphs``; a tensor-parallel step
+    holds collectives). Every other call runs the step eagerly."""
     return (torch.device(device).type == "cuda" and use_kernel
-            and rng is None and pen_counts is None and model is SINGLE)
+            and rng is None and pen_counts is None
+            and getattr(model, "graphs", False))
 
 
 @torch.no_grad()
@@ -380,6 +437,7 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
                          "(rng=None) instead")
     dev = _dev(params)
     toks = to_device(first_tokens, dev).int()
+    coords = model.commit_coords(pool, pages, slots, positions0, num_steps)
     positions0 = to_device(positions0, dev)
     block_tables = to_device(block_tables, dev)
     if not isinstance(temperature, (int, float)):        # (B,) per row
@@ -395,10 +453,10 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
     active = positions0 >= 0
     safe_pos0 = torch.where(active, positions0, 0).int()
     B, K = toks.shape[0], num_steps
-    NH, HS = model.heads(cfg), cfg.head_dim
-    quant = isinstance(pool, QuantPagePool)
-    stack = gpt2._layer_stack(params)
-    cdtype = params["wpe"].dtype            # the serving compute dtype
+    NH, HS = model.kv_heads(cfg), cfg.head_dim
+    quant = pool.quant
+    stack = model.layer_stack(params)
+    cdtype = model.compute_dtype(params)    # the serving compute dtype
 
     def pick(logits):
         picked = _pick(logits, counts, rng, top_k, temperature, k_arr,
@@ -422,7 +480,7 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
             lambda k: _chain_step(params, stack, st, k, pool, cfg, window,
                                   use_kernel, quant, model, pick, cdtype,
                                   want_logprobs),
-            st.j.zero_, dev)
+            st.j.zero_, dev, keep=model.step_counters(pool))
         st.load(toks, safe_pos0, block_tables, K)
         graphs.replay(g, K)
         out = st.out[:K].clone()
@@ -445,10 +503,11 @@ def decode_chunk_paged(params, first_tokens, positions0, pages, slots,
     for i in range(cfg.num_layers):
         tk, tv = (t.to(cdtype) for t in (st.tails[0, i, :K],
                                           st.tails[1, i, :K]))
+        pg, sl = coords(i)
         if quant:
-            commit_layer_kv_quant(pool.layer(i), tk, tv, pages, slots)
+            commit_layer_kv_quant(pool.layer(i), tk, tv, pg, sl)
         else:
-            commit_layer_kv(*pool.layer(i), tk, tv, pages, slots)
+            commit_layer_kv(*pool.layer(i), tk, tv, pg, sl)
     ret = (out,)
     if counts is not None:
         ret += (counts,)

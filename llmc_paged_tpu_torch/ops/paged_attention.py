@@ -50,8 +50,8 @@ LAUNCHES = {"paged_decode_attention_parts": 0,
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # the .cu enum
 # head sizes the parts and grid kernels are instantiated for (their
-# register tiles): every GPT-2 size has head_dim 64
-PARTS_HEAD_DIMS = (64,)
+# register tiles): every GPT-2 size has head_dim 64, Mellum 2 has 128
+PARTS_HEAD_DIMS = (64, 128)
 GRID_HEAD_DIMS = (64,)
 # tokens a parts-kernel lane loads as one vector: the page size and the
 # pools' alignment must be multiples of it

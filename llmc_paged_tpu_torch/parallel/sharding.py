@@ -456,14 +456,17 @@ def _tp_logits(x, params, mesh: Mesh, cfg: GPT2Config):
     return _all_gather_last(local, mesh)[..., : cfg.vocab_size]
 
 
-class TPModel:
+class TPModel(gpt2_paged.SingleDevice):
     """The paged forward's model pieces on one rank of a TP mesh (the
     one-device ones are ``models/gpt2_paged.SINGLE``): the local heads,
     the vocab-sharded embedding and logits, the block with its two
     all-reduces. As in the JAX package, the prompt attends through the
     plain causal attention (:504; the flash route under TP is later
     work) and a suffix prefill reads the pool through the multi-query
-    kernel only for T <= 64 (:571)."""
+    kernel only for T <= 64 (:571). Its chained step holds collectives,
+    so it never replays as a CUDA graph."""
+
+    graphs = False
 
     def __init__(self, cfg: GPT2Config, mesh: Mesh):
         _check_divides(cfg, mesh)

@@ -36,7 +36,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "llmc_paged_tpu_torch.ops.dev.probe_longctx",
             "llmc_paged_tpu_torch.ops.dev.probe_longrange",
             "llmc_paged_tpu_torch.utils.spans",
-            "llmc_paged_tpu_torch.models.decode_graphs"} <= set(
+            "llmc_paged_tpu_torch.models.decode_graphs",
+            "llmc_paged_tpu_torch.models.mellum",
+            "llmc_paged_tpu_torch.models.mellum_paged"} <= set(
                 _port_modules())
     code = (
         "import importlib, sys\n"
@@ -73,7 +75,9 @@ def test_no_source_names_jax_or_the_jax_package():
     assert {os.path.join(PKG, "eval.py"), os.path.join(PKG, "train.py"),
             os.path.join(PKG, "utils", "dataloader.py"),
             os.path.join(PKG, "utils", "spans.py"),
-            os.path.join(PKG, "models", "decode_graphs.py")} <= set(files)
+            os.path.join(PKG, "models", "decode_graphs.py"),
+            os.path.join(PKG, "models", "mellum.py"),
+            os.path.join(PKG, "models", "mellum_paged.py")} <= set(files)
     assert {os.path.join(PKG, "kv", "native.py"),
             os.path.join(PKG, "ops", "dev", "dump_chunk_trace.py"),
             os.path.join(PKG, "csrc", "block_manager.cpp")} <= set(files)
@@ -106,6 +110,14 @@ def test_entry_points_default_to_the_card(fixtures_dir, monkeypatch):
         InferenceEngine(params, cfg, EngineConfig(greedy=True))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    # the Mellum family's weights and pools
+    from llmc_paged_tpu_torch.config import MellumConfig, PageConfig
+    from llmc_paged_tpu_torch.models import mellum, mellum_paged
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mellum.init_params(MellumConfig.tiny(),
+                           torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mellum_paged.init_pool(MellumConfig.tiny(), PageConfig())
     # the kernel lab's stacked-pool sweep and helper, and the probe
     from llmc_paged_tpu_torch.ops.dev import lab_full_pool, probe_decode
     with pytest.raises(RuntimeError, match="no CUDA device"):
