@@ -19,11 +19,15 @@ tokens (and of their prompt) and for frequency/presence penalties over
 their full context.
 
 Continuous batching over the paged pool:
-  * admission waves, each with ONE padded prefill (rows padded to the
-    wave's longest 16-token bucket, a power-of-two batch, logits only at
-    each row's last prompt position); greedy first tokens are picked on
-    the device and fetched after the first decode link is queued,
-    sampled ones are drawn at admission;
+  * admission waves, each cut by its rows' lengths into a few padded
+    prefill calls (``_subwaves``: rows sorted by 16-token bucket, each
+    call padded to its own longest row's bucket and holding exactly its
+    rows, a cut made where it saves more than PREFILL_CALL_SLOTS padded
+    token slots; logits only at each row's last prompt position), all
+    queued before any copy to the host, their outputs put back in
+    admission order on the device; greedy first tokens are picked on the
+    device and fetched after the first decode link is queued, sampled
+    ones are drawn at admission;
   * sliding-window page reclamation;
   * chains of K-step decode chunks (a batch whose rows are all
     effectively greedy, or any batch under device sampling): pages
@@ -123,6 +127,41 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _bucket(n: int, step: int = 16) -> int:
     """Pad prefill lengths to buckets (bounded shape variety)."""
     return max(step, ((n + step - 1) // step) * step)
+
+
+# the padded token slots one more prefill call is worth: a wave is cut
+# into another call only where that saves more slots than this
+PREFILL_CALL_SLOTS = 2048
+
+
+def _subwaves(lengths: Sequence[int]) -> List[List[int]]:
+    """An admission wave's rows (their prefill lengths) cut into prefill
+    calls, each padded to its own longest row's 16-token bucket and
+    holding exactly its rows. The rows, sorted by bucket, are cut between
+    buckets where that minimises Σ rows·bucket + PREFILL_CALL_SLOTS per
+    call (dynamic programming over the distinct buckets). Returns the
+    calls' row indices, each call in row order, the longest call first;
+    a wave of one bucket is one call."""
+    buckets = sorted({_bucket(n) for n in lengths})
+    count = collections.Counter(_bucket(n) for n in lengths)
+    rows = [0]                  # rows[j]: the rows of the first j buckets
+    for b in buckets:
+        rows.append(rows[-1] + count[b])
+    # best[j]: the least cost of the first j buckets' rows; cut[j]: where
+    # the last call of that best starts (the first, so the widest, of ties)
+    best, cut = [0], [0]
+    for j in range(1, len(buckets) + 1):
+        costs = [best[i] + (rows[j] - rows[i]) * buckets[j - 1]
+                 + PREFILL_CALL_SLOTS for i in range(j)]
+        best.append(min(costs))
+        cut.append(costs.index(best[j]))
+    calls, j = [], len(buckets)
+    while j:
+        members = set(buckets[cut[j]:j])
+        calls.append([r for r, n in enumerate(lengths)
+                      if _bucket(n) in members])
+        j = cut[j]
+    return calls
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -282,6 +321,29 @@ def _prefill_plp_extract(full, xs, valid, last):
     last_logits = full[torch.arange(full.shape[0], device=dev),
                        last.long()]
     return last_logits, tok_lp
+
+
+def _in_admission_order(parts):
+    """A wave's prefill calls' outputs, ``parts`` = [(rows, (b, V) logits,
+    (b, Tb-1) prompt logprobs | None)] with ``rows`` the calls' wave row
+    indices, as ONE (rows, V) logits tensor and, where a call took prompt
+    logprobs, ONE (rows, W) tensor of them (W the widest such call's; zeros
+    past a row's own, and in a call without them), both in admission
+    order on the device."""
+    if len(parts) == 1:
+        return parts[0][1], parts[0][2]
+    order = [i for rows, _, _ in parts for i in rows]
+    inv = to_device(torch.from_numpy(np.argsort(order)), parts[0][1].device)
+    logits = torch.cat([lg for _, lg, _ in parts])[inv]
+    if all(lp is None for _, _, lp in parts):
+        return logits, None
+    width = max(lp.shape[1] for _, _, lp in parts if lp is not None)
+    plp = torch.cat([
+        torch.nn.functional.pad(lp, (0, width - lp.shape[1]))
+        if lp is not None
+        else lg.new_zeros((len(rows), width), dtype=torch.float32)
+        for rows, lg, lp in parts])[inv]
+    return logits, plp
 
 
 def _pick_token(sampler: Sampler, logits_row) -> int:
@@ -832,6 +894,7 @@ class InferenceEngine:
         verify_steps = 0        # of which speculative verify steps
         single_steps = 0        # of which single-token steps
         suffix_prefills = 0     # prefix-cache suffix prefill calls
+        prefill_calls = 0       # prefill calls, all kinds (a wave makes 1+)
         peak_pages = 0
         iteration = 0
         # per-slot count of prompt tokens dropped at admission (prompt
@@ -937,6 +1000,34 @@ class InferenceEngine:
                 "uptime_s": dt,
             }
 
+        def call_inputs(group, rows, lens):
+            """One prefill call's host inputs: the wave rows ``rows``
+            (indices into ``group``, of prefill lengths ``lens``), right-
+            padded to their longest row's bucket Tb. Each row counts Tb
+            padded slots. Returns (rows, xs, valid, tables, last, offs,
+            page ids, slots)."""
+            Tb = _bucket(max(lens[i] for i in rows))
+            b = len(rows)
+            xs = np.zeros((b, Tb), np.int32)
+            valid = np.zeros((b, Tb), bool)
+            tables_g = np.zeros((b, pps), np.int32)
+            last = np.zeros(b, np.int64)
+            offs = np.zeros(b, np.int32)
+            for k, i in enumerate(rows):
+                slot, req = group[i]
+                n = lens[i]
+                xs[k, :n] = req.tokens[bases[slot] + cached[slot]:]
+                valid[k, :n] = True
+                tables_g[k] = mgr.block_table_array(slot, pps)
+                last[k] = n - 1
+                offs[k] = cached[slot]          # page-aligned by adopt
+                req.prefill_slots += Tb
+            pos = offs[:, None] + np.arange(Tb, dtype=np.int32)[None, :]
+            pg, sl = token_coords(torch.from_numpy(tables_g),
+                                  torch.from_numpy(pos), page.page_size,
+                                  torch.from_numpy(valid), page.num_pages)
+            return rows, xs, valid, tables_g, last, offs, pg, sl
+
         def poll_feed() -> None:
             """Serving, between chain links: arrivals join the waiting
             queue (a host queue check; nothing touches the device)."""
@@ -1024,76 +1115,71 @@ class InferenceEngine:
                 prefill_span = span("engine.prefill").open()
                 t_wave = time.monotonic()
                 group = admitted
-                Tb = _bucket(max(len(req.tokens) - bases[slot]
-                                 - cached[slot] for slot, req in group))
-                Bg = 1 << (len(group) - 1).bit_length()
-                xs = np.zeros((Bg, Tb), np.int32)
-                valid = np.zeros((Bg, Tb), bool)
-                tables_g = np.zeros((Bg, pps), np.int32)
-                last = np.zeros(Bg, np.int64)
-                offs = np.zeros(Bg, np.int32)
-                for i, (slot, req) in enumerate(group):
-                    skip = bases[slot] + cached[slot]
-                    n = len(req.tokens) - skip
-                    xs[i, :n] = req.tokens[skip:]
-                    valid[i, :n] = True
-                    tables_g[i] = mgr.block_table_array(slot, pps)
-                    last[i] = n - 1
-                    offs[i] = cached[slot]      # page-aligned by adopt
-                    # the wave's (Bg, Tb) token slots shared by its rows
+                lens = [len(req.tokens) - bases[slot] - cached[slot]
+                        for slot, req in group]
+                for (slot, req), n in zip(group, lens):
                     if req.t_admit is None:
                         req.t_admit = t_wave
                     req.prefill_tokens += n
-                    req.prefill_slots += Bg * Tb / len(group)
-                pos = offs[:, None] + np.arange(Tb, dtype=np.int32)[None, :]
-                pg, sl = token_coords(torch.from_numpy(tables_g),
-                                      torch.from_numpy(pos), page.page_size,
-                                      torch.from_numpy(valid), page.num_pages)
-                # a windowed family's prefill writes each row's window
-                # ring, found by the row's slot
-                rows_kw = ({"rows": torch.tensor([s for s, _ in group])}
-                           if windowed else {})
                 plp_rows = [(i, req) for i, (slot, req) in enumerate(group)
                             if req.prompt_logprobs
                             and not req.prompt_logprob_values
                             and not req.generated]
-                if offs.any():
-                    # a row rides adopted pages: the suffix prefill attends
-                    # the cached prefix through the block table (rows with
-                    # offs 0 degenerate to plain prefill inside)
-                    logits, pool = gpt2_paged.prefill_suffix_paged(
-                        self._prompt_params,
-                        torch.from_numpy(xs), pg, sl, pool,
-                        torch.from_numpy(tables_g), torch.from_numpy(offs),
-                        cfg, last_pos=torch.from_numpy(last),
-                        use_kernel=self.use_kernel,
-                        model=self._model)                      # (Bg, V)
-                    suffix_prefills += 1
-                elif plp_rows:
-                    # scoring rows take the full (Bg, T, V) logits, the
-                    # next-token logprobs are taken on the device and
-                    # fetched once for the wave
-                    full, pool = self._paged.prefill_paged(
-                        self._prompt_params,
-                        torch.from_numpy(xs), pg, sl, pool, cfg,
-                        last_pos=None,
-                        use_kernel=self.use_kernel,
-                        **rows_kw)                              # (Bg, T, V)
-                    logits, plp_d = _prefill_plp_extract(full, xs, valid,
-                                                         last)
-                    del full
+                plp_idx = {i for i, _ in plp_rows}
+                # every call's host inputs first, then every call queued,
+                # then the wave's outputs back in admission order
+                calls = [call_inputs(group, rows, lens)
+                         for rows in _subwaves(lens)]
+                parts = []          # (rows, (b, V) logits, (b, Tb-1) | None)
+                for rows, xs, valid, tables_g, last, offs, pg, sl in calls:
+                    prefill_calls += 1
+                    # a windowed family's prefill writes each row's window
+                    # ring, found by the row's slot
+                    rows_kw = ({"rows": torch.tensor([group[i][0]
+                                                      for i in rows])}
+                               if windowed else {})
+                    tok_lp = None
+                    if offs.any():
+                        # a row rides adopted pages: the suffix prefill
+                        # attends the cached prefix through the block table
+                        # (rows with offs 0 degenerate to plain prefill)
+                        logits, pool = gpt2_paged.prefill_suffix_paged(
+                            self._prompt_params,
+                            torch.from_numpy(xs), pg, sl, pool,
+                            torch.from_numpy(tables_g),
+                            torch.from_numpy(offs), cfg,
+                            last_pos=torch.from_numpy(last),
+                            use_kernel=self.use_kernel,
+                            model=self._model)                  # (b, V)
+                        suffix_prefills += 1
+                    elif plp_idx.intersection(rows):
+                        # scoring rows take the full (b, T, V) logits, the
+                        # next-token logprobs are taken on the device and
+                        # fetched once for the wave
+                        full, pool = self._paged.prefill_paged(
+                            self._prompt_params,
+                            torch.from_numpy(xs), pg, sl, pool, cfg,
+                            last_pos=None,
+                            use_kernel=self.use_kernel,
+                            **rows_kw)                          # (b, T, V)
+                        logits, tok_lp = _prefill_plp_extract(full, xs,
+                                                              valid, last)
+                        del full
+                    else:
+                        logits, pool = self._paged.prefill_paged(
+                            self._prompt_params,
+                            torch.from_numpy(xs), pg, sl, pool, cfg,
+                            last_pos=torch.from_numpy(last),
+                            use_kernel=self.use_kernel,
+                            model=self._model, **rows_kw)       # (b, V)
+                    parts.append((rows, logits, tok_lp))
+                lg, plp_d = _in_admission_order(parts)
+                if plp_d is not None:
                     with span("engine.fetch"):
                         plp = plp_d.cpu().numpy()
                     for i, req in plp_rows:
                         req.prompt_logprob_values = [
                             float(v) for v in plp[i, : len(req.prompt) - 1]]
-                else:
-                    logits, pool = self._paged.prefill_paged(
-                        self._prompt_params,
-                        torch.from_numpy(xs), pg, sl, pool, cfg,
-                        last_pos=torch.from_numpy(last),
-                        use_kernel=self.use_kernel,
-                        model=self._model, **rows_kw)           # (Bg, V)
                 if prefix_on:
                     # publish this wave's full prompt pages only now, after
                     # the call that writes their K/V is queued (a same-wave
@@ -1104,7 +1190,6 @@ class InferenceEngine:
                             slot, req.tokens)
                 group_reqs = [r for _, r in group]
                 group_lp = any(r.logprobs for r in group_reqs)
-                lg = logits[: len(group)]
                 if all(_effective(sampler, r)[0] for r in group_reqs) \
                         and not any(_has_penalties(r) for r in group_reqs):
                     # greedy: pick on the device and fetch after the first
@@ -1695,6 +1780,8 @@ class InferenceEngine:
             # of the decode steps, the chained steps replayed as a graph
             "decode_graph_steps": self._decode_graphs.steps - graph_steps0,
             "suffix_prefills": suffix_prefills,
+            # against spans["engine.prefill"]["n"] (the waves): calls a wave
+            "prefill_calls": prefill_calls,
         }
         if windowed:
             self.stats.update(mellum_paged.run_stats(pool, peak_pages))

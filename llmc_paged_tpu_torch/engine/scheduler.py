@@ -80,7 +80,8 @@ class Request:
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
     # summed over the request's admissions: the real tokens it prefilled,
-    # and its share Bg*Tb/rows of each wave's padded (Bg, Tb) token slots
+    # and the padded length Tb of its prefill call (the call's (rows, Tb)
+    # token slots over its rows)
     prefill_tokens: int = 0
     prefill_slots: float = 0.0
 

@@ -272,7 +272,7 @@ def test_model_step_counts_the_chained_steps(served):
     assert st["decode_steps"] > 0 and st["single_steps"] == 0
     assert sp["model.step"]["n"] == (st["decode_steps"] - st["single_steps"]
                                      - st["verify_steps"])
-    assert sp["engine.prefill"]["n"] == n_waves >= 2
+    assert sp["engine.prefill"]["n"] == n_waves == st["prefill_calls"] >= 2
     assert sp["engine.iteration"]["n"] >= n_waves
     assert len(loop.done) == 10 and loop.tokens == 10 * 9
     # every second of the run lies in some pass of the loop
@@ -319,18 +319,41 @@ def test_admission_lies_between_submit_and_first_token(served):
 
 
 def test_a_hand_built_wave_counts_its_padded_slots():
-    """Prompts of 5, 20 and 33 tokens in one wave: 4 rows (the next power
-    of two) of 48 tokens (33's 16-token bucket)."""
+    """Prompts of 5, 20 and 33 tokens in one wave: one call (a cut would
+    save fewer slots than a call is worth) of 3 rows of 48 tokens (33's
+    16-token bucket)."""
     eng = _engine()
     reqs = [Request(rid=i, prompt=p, max_new_tokens=2)
             for i, p in enumerate(_prompts([5, 20, 33]))]
     done = eng.run(reqs)
     assert eng.stats["spans"]["engine.prefill"]["n"] == 1
+    assert eng.stats["prefill_calls"] == 1
     assert len({r.t_admit for r in done}) == 1
-    assert sum(r.prefill_slots for r in done) == 192
+    assert sum(r.prefill_slots for r in done) == 144
     assert sum(r.prefill_tokens for r in done) == 58
     assert [r.prefill_slots for r in sorted(done, key=lambda r: r.rid)] \
-        == [64.0, 64.0, 64.0]
+        == [48.0, 48.0, 48.0]
+
+
+def test_a_wave_of_short_and_long_prompts_counts_each_calls_slots():
+    """Six 16-token prompts and one of 1,000 in one wave: two calls, the
+    short rows padded to 16 and the long one to 1,008, each row counting
+    its own call's slots (one call would pad all seven to 1,008)."""
+    cfg = port_cfg(max_seq_len=1024)
+    page = PageConfig(page_size=16, num_pages=80, max_seqs=7,
+                      pages_per_seq=64)
+    econf = EngineConfig(cache_mode="paged", page=page, greedy=True,
+                         max_batch=7, decode_chunk=4)
+    eng = InferenceEngine(params_np(cfg, seed=0), cfg, econf, device="cpu")
+    lens = [16, 16, 1000, 16, 16, 16, 16]
+    done = eng.run([Request(rid=i, prompt=p, max_new_tokens=2)
+                    for i, p in enumerate(_prompts(lens))])
+    assert eng.stats["spans"]["engine.prefill"]["n"] == 1
+    assert eng.stats["prefill_calls"] == 2
+    assert len({r.t_admit for r in done}) == 1
+    assert [r.prefill_slots for r in sorted(done, key=lambda r: r.rid)] \
+        == [16.0, 16.0, 1008.0, 16.0, 16.0, 16.0, 16.0]
+    assert sum(r.prefill_tokens for r in done) == sum(lens)
 
 
 def test_engine_spans_in_a_profiler_trace():
