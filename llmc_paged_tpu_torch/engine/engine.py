@@ -67,14 +67,14 @@ the engine's ``DecodeGraphs`` captures every chain length it can ask for
 at the first such chain, and ``stats["decode_graph_steps"]`` counts the
 steps that replayed.
 
-Model families: the config's type chooses the paged model module the
-engine calls (``self._paged``): ``models/gpt2_paged`` for a GPT2Config,
-``models/mellum_paged`` for a MellumConfig (bf16 or f32 weights taken
-as they are, a full-layer pool beside the sliding layers' window rings,
-the routing counter read into ``stats``). Mellum serves the paged mode
-alone: the "none" and "dense" modes, speculative decoding, prefix
-caching, tensor parallelism and ``run(window=...)`` raise a ValueError
-naming the family.
+Model families: ``InferenceEngine._load`` alone reads the config's type
+and chooses the engine's model object (``self._model``:
+``gpt2_paged.SINGLE``, ``sharding.TPModel``, or ``mellum_paged.MODEL``
+with a full-layer pool beside the sliding layers' window rings), which
+answers the rest: its device entries' module, pool, refusals and run
+counters. Mellum serves the paged mode alone, with float weights; other
+options and ``run(window=...)`` raise a ValueError naming the family.
+A run is a ``_Run``, whose ``deliver`` hands every token to its request.
 
 Tensor parallelism (EngineConfig.mesh_shape, ``{"model": m}`` or
 ``{"data": d, "model": m}``; parallel/sharding.py): the engine runs in
@@ -107,7 +107,7 @@ from llmc_paged_tpu_torch.config import (
 )
 from llmc_paged_tpu_torch.engine.scheduler import Request, Scheduler, State
 from llmc_paged_tpu_torch.kv import native
-from llmc_paged_tpu_torch.kv.layouts import init_pool, to_device, token_coords
+from llmc_paged_tpu_torch.kv.layouts import to_device, token_coords
 from llmc_paged_tpu_torch.models import gpt2, gpt2_paged, mellum, mellum_paged
 from llmc_paged_tpu_torch.models.decode_graphs import DecodeGraphs
 from llmc_paged_tpu_torch.ops.int8 import quantize_params
@@ -172,7 +172,8 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def _sample_rows(sampler: Sampler, logits, n: int) -> List[int]:
     """Sample the first n rows of (N, V) device logits with one batched
     device reduction and transfer; the greedy/top-k/parity dispatch lives
-    here (and in _pick_token for single rows) only."""
+    here only. Greedy ships 4 bytes a row, top-k each row's prefix, a
+    temperature alone the rows, the parity sampler their softmax."""
     if sampler.greedy:
         picks = torch.argmax(logits, dim=-1).cpu().numpy()
         return [int(picks[i]) for i in range(n)]
@@ -241,19 +242,6 @@ def _penalized_row(row: np.ndarray, req: Request) -> np.ndarray:
     np.add.at(cnt, np.clip(np.asarray(req.tokens), 0, V - 1), 1.0)
     return (row.astype(np.float32) - req.frequency_penalty * cnt
             - req.presence_penalty * (cnt > 0))
-
-
-def _unpack_chunk(res, pen: bool, want_lp: bool):
-    """decode_chunk_paged returns (out[, counts][, logps], pool) by flag;
-    normalize to (out, counts|None, logps|None, pool)."""
-    i = 1
-    counts = lp = None
-    if pen:
-        counts = res[i]
-        i += 1
-    if want_lp:
-        lp = res[i]
-    return res[0], counts, lp, res[-1]
 
 
 def _fetch(ints: torch.Tensor, floats: Optional[torch.Tensor]):
@@ -346,19 +334,6 @@ def _in_admission_order(parts):
     return logits, plp
 
 
-def _pick_token(sampler: Sampler, logits_row) -> int:
-    """One token from a (V,) device logits row: greedy takes the argmax on
-    the device and ships 4 bytes; top-k ships its prefix; a temperature
-    alone ships the row; the parity sampler ships the softmax."""
-    if sampler.greedy:
-        return int(torch.argmax(logits_row))
-    if sampler.transforms_logits and sampler.top_k:
-        return _sample_rows_topk(sampler, logits_row[None], 1)[0]
-    if sampler.transforms_logits:
-        return sampler.sample_logits(_host(logits_row))
-    return sampler.sample(_host(torch.softmax(logits_row, dim=-1)))
-
-
 def _validate_indices(page_cfg: PageConfig, tables: np.ndarray,
                       pgs: Optional[np.ndarray] = None,
                       sls: Optional[np.ndarray] = None,
@@ -386,6 +361,15 @@ def _chain_lengths(decode_chunk: int) -> Tuple[int, ...]:
     return tuple(sorted({k for k in (dc, dc // 4, dc // 16) if k > 1}))
 
 
+def _chain_length(decode_chunk: int, cap: int, blocked: bool) -> int:
+    """A plain chain's link length of ``_chain_lengths(decode_chunk)``:
+    the longer that ``cap`` (the fullest row's context left) fits of
+    decode_chunk and a quarter, a quarter and a sixteenth when admission
+    is page-blocked; 1 (a single-token step) when neither fits."""
+    tiers = _chain_lengths(decode_chunk)[::-1][int(blocked):][:2]
+    return next((k for k in tiers if k <= cap), 1)
+
+
 def _check_window(window: Optional[int], cfg: GPT2Config) -> int:
     """Reject windows the position embedding cannot serve."""
     if window is not None and window < 1:
@@ -411,11 +395,7 @@ class InferenceEngine:
                  use_kernel: bool = True,
                  native_manager: Optional[bool] = None):
         self.cfg = cfg
-        self.econf = econf = econf or EngineConfig()
-        self._check_config()
-        if device is None and econf.mesh_shape:
-            device = f"cuda:{sharding.local_rank()}"
-        self.device = resolve_device(device)
+        self.econf = econf or EngineConfig()
         self.use_kernel = use_kernel
         self.native_manager = native_manager
         self.stats: Dict[str, object] = {}
@@ -431,21 +411,33 @@ class InferenceEngine:
         # with the pool whose pages it describes
         self._prefix_mgr = None
         # CUDA graphs of the greedy chained step, over the pool above
-        self._decode_graphs = DecodeGraphs(_chain_lengths(econf.decode_chunk))
+        self._decode_graphs = DecodeGraphs(
+            _chain_lengths(self.econf.decode_chunk))
+        self._load(params, device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _load(self, params, device) -> None:
+        """The model family: the config's type and the mesh choose the
+        model object (its refusals checked before the config's own); its
+        weights go to the device (``params``, the whole model; its bf16
+        prefill copy; the weights the decode and prompt calls take)."""
+        cfg, econf = self.cfg, self.econf
+        model = (mellum_paged.MODEL if isinstance(cfg, MellumConfig)
+                 else gpt2_paged.SINGLE)
+        model.refuse(econf, device)
+        self._check_config()
+        if device is None and econf.mesh_shape:
+            device = f"cuda:{sharding.local_rank()}"
+        self.device = resolve_device(device)
         self.mesh = None
-        self._paged = gpt2_paged
-        if isinstance(cfg, MellumConfig):
-            if self.device.type == "cuda" and econf.param_dtype != "bfloat16":
-                raise ValueError(
-                    "the Mellum family is served in bfloat16 on the card (its "
-                    "grouped expert products take bf16), got param_dtype "
-                    f"{econf.param_dtype!r}")
-            self._paged = mellum_paged
-            self._model = mellum_paged.MellumModel()
-            self.params = mellum.prepare_params(
-                params, cfg, _DTYPES[econf.param_dtype], self.device)
-            self._prefill_params = None
-            self._decode_params = self._prompt_params = self.params
+        self._model = model
+        self.params = self._prefill_params = None
+        if model is mellum_paged.MODEL:
+            # bf16 or f32 weights, taken as they are
+            self.params = self._decode_params = self._prompt_params = \
+                mellum.prepare_params(params, cfg, _DTYPES[econf.param_dtype],
+                                      self.device)
             return
         quantized = str(params["wte"].dtype).endswith("int8")
         if econf.prefill_param_dtype is not None:
@@ -460,14 +452,12 @@ class InferenceEngine:
         # the whole model on the device: the paged path's weights on one
         # device, and under tensor parallelism only for the "none" and
         # "dense" modes, which run it on each rank
-        self.params = self._prefill_params = None
         if not econf.mesh_shape or econf.cache_mode != "paged":
             self._whole_model(params, quantized)
         # the paged path's weights and model pieces: the whole model, or
         # under tensor parallelism this rank's shard, prepared from the
         # caller's FLOAT params in the TP layout (and quantized there) on
         # the host, so that only the shard reaches the rank's device
-        self._model = gpt2_paged.SINGLE
         self._decode_params = self.params
         self._prompt_params = self._prefill_params or self.params
         if econf.mesh_shape:
@@ -484,8 +474,6 @@ class InferenceEngine:
                 self._prompt_params = sharding.prepare_tp_params(
                     params, cfg, self.mesh, param_dtype="bfloat16",
                     device=self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def _whole_model(self, params, quantized: bool) -> None:
         """``self.params`` (and the bf16 prefill copy) on the device."""
@@ -509,21 +497,6 @@ class InferenceEngine:
 
     def _check_config(self) -> None:
         econf, page = self.econf, self.econf.page
-        if isinstance(self.cfg, MellumConfig):
-            off = [name for name, on in (
-                (f"cache_mode {econf.cache_mode!r}",
-                 econf.cache_mode != "paged"),
-                ("spec_k", econf.spec_k >= 2),
-                ("prefix_cache", page.prefix_cache),
-                ("mesh_shape", bool(econf.mesh_shape)),
-                (f"param_dtype {econf.param_dtype!r}",
-                 econf.param_dtype not in _DTYPES),
-                ("prefill_param_dtype",
-                 econf.prefill_param_dtype is not None)) if on]
-            if off:
-                raise ValueError(
-                    f"the Mellum family is served in paged mode with float "
-                    f"weights only: {', '.join(off)} is not supported")
         if econf.cache_mode not in ("none", "dense", "paged"):
             raise ValueError(f"cache_mode {econf.cache_mode!r}")
         if econf.spec_k >= 2 and not econf.greedy:
@@ -569,7 +542,7 @@ class InferenceEngine:
         for _ in range(max_new_tokens):
             ctx = torch.tensor([toks[-window:]], dtype=torch.int32)
             logits = gpt2.forward(self.params, ctx, self.cfg)
-            toks.append(_pick_token(sampler, logits[0, -1]))
+            toks.append(_sample_rows(sampler, logits[0, -1:], 1)[0])
             if stops and toks[-1] in stops:
                 break
         return toks
@@ -602,7 +575,7 @@ class InferenceEngine:
         logits, cache = gpt2.prefill(
             self.params, torch.tensor([toks[base:]], dtype=torch.int32),
             cache, cfg, use_kernel=self.use_kernel)
-        toks.append(_pick_token(sampler, logits[0, -1]))
+        toks.append(_sample_rows(sampler, logits[0, -1:], 1)[0])
         for _ in range(max_new_tokens - 1):
             if stops and toks[-1] in stops:
                 break
@@ -612,7 +585,7 @@ class InferenceEngine:
                 torch.tensor([pos]), cache, cfg,
                 wpe_pos=torch.tensor([min(pos, window - 1)]),
                 starts=torch.tensor([max(0, pos + 1 - window)]))
-            toks.append(_pick_token(sampler, logits[0]))
+            toks.append(_sample_rows(sampler, logits, 1)[0])
         return toks
 
     # -- mode "paged": block-table KV + continuous batching ------------------
@@ -656,37 +629,25 @@ class InferenceEngine:
         if req.top_k is not None and req.top_k < 1:
             raise ValueError(f"request {req.rid}: top_k must be >= 1, "
                              f"got {req.top_k}")
-        if req.logprobs:
+        if req.logprobs or req.prompt_logprobs:
+            name = "logprobs" if req.logprobs else "prompt_logprobs"
             if not econf.serve_logprobs:
                 raise ValueError(
                     f"request {req.rid}: logprobs are disabled on this "
                     "engine (EngineConfig.serve_logprobs / CLI "
                     "--no-logprobs)")
             if self.mesh is not None:
-                raise ValueError(
-                    f"request {req.rid}: logprobs under tensor "
-                    "parallelism are not supported yet")
-            if econf.spec_k >= 2:
+                raise ValueError(f"request {req.rid}: {name} under tensor "
+                                 "parallelism are not supported yet")
+            if req.logprobs and econf.spec_k >= 2:
                 raise ValueError(
                     f"request {req.rid}: logprobs under speculative "
                     "decoding are not supported (acceptance-variable "
                     "verify steps)")
             if econf.cache_mode != "paged":
                 raise ValueError(
-                    f"request {req.rid}: logprobs require paged serving")
+                    f"request {req.rid}: {name} require paged serving")
         if req.prompt_logprobs:
-            if not econf.serve_logprobs:
-                raise ValueError(
-                    f"request {req.rid}: logprobs are disabled on this "
-                    "engine (EngineConfig.serve_logprobs / CLI "
-                    "--no-logprobs)")
-            if self.mesh is not None:
-                raise ValueError(
-                    f"request {req.rid}: prompt_logprobs under tensor "
-                    "parallelism are not supported yet")
-            if econf.cache_mode != "paged":
-                raise ValueError(f"request {req.rid}: prompt_logprobs "
-                                 "require paged serving")
             if page.prefix_cache:
                 raise ValueError(
                     f"request {req.rid}: prompt_logprobs with prefix "
@@ -775,17 +736,8 @@ class InferenceEngine:
         if pool is None:
             # graphs over a lost pool would hold it beside the new one
             self._decode_graphs.reset()
-        if pool is None and self.mesh is not None:
-            pool = sharding.init_tp_pool(self.cfg, page, self.mesh,
-                                         dtype=page.kv_dtype,
-                                         device=self.device)
-        elif pool is None and self._paged is mellum_paged:
-            pool = mellum_paged.init_pool(self.cfg, page, dtype=page.kv_dtype,
-                                          device=self.device,
-                                          max_seqs=max_seqs)
-        elif pool is None:
-            pool = init_pool(self.cfg, page, dtype=page.kv_dtype,
-                             device=self.device)
+            pool = self._model.new_pool(self.cfg, page, page.kv_dtype,
+                                        self.device, max_seqs)
         return mgr, pool
 
     def run(self, requests: List[Request], window: Optional[int] = None,
@@ -819,989 +771,8 @@ class InferenceEngine:
         them. While a profiler records, each span is also a
         ``record_function`` range of the trace."""
         with spans.recording() as rec:
-            return self._run(rec, requests, window, sampler, feed,
-                             on_finish, on_tokens)
-
-    def _run(self, rec, requests, window, sampler, feed, on_finish,
-             on_tokens) -> List[Request]:
-        cfg, econf = self.cfg, self.econf
-        page = econf.page
-        if window is not None and self._paged is mellum_paged:
-            raise ValueError("run(window=...) is not supported for the "
-                             "Mellum family: its sliding layers have their "
-                             "own window, its full layers keep every page")
-        window = _check_window(window, cfg)
-        sampler = sampler or self._default_sampler()
-        if econf.spec_k >= 2 and not sampler.greedy:
-            raise ValueError(
-                "spec_k requires greedy serving: speculative verification "
-                "accepts argmax matches; rejection sampling for the "
-                "stochastic samplers is not implemented")
-        sched = Scheduler(econf.max_batch)
-        # a long-lived serving loop must not grow with request count:
-        # finished requests are dropped after delivery; batch runs keep
-        # them (run() returns them)
-        retain_finished = feed is None
-        n_finished = 0
-        ttfts: "collections.deque" = collections.deque(maxlen=1024)
-        dev = self.device
-
-        def record_finished(r: Request) -> None:
-            """Bookkeeping of every finish path; drops the request from
-            sched.finished under serving (it was appended just before)."""
-            nonlocal n_finished
-            n_finished += 1
-            if r.t_done is None:
-                r.t_done = time.monotonic()
-            if r.ttft is not None:
-                ttfts.append(r.ttft)
-            if not retain_finished:
-                sched.finished.pop()
-
-        def retire_unscheduled(r: Request) -> None:
-            r.state = State.DONE
-            sched.finished.append(r)
-            record_finished(r)
-            if on_finish is not None:
-                with span("engine.callback"):
-                    on_finish(r)
-
-        def submit_one(r: Request) -> None:
-            if r.cancelled:        # cancelled before it ever reached us
-                retire_unscheduled(r)
-                return
-            self.validate_request(r, window)
-            if r.max_new_tokens <= 0:
-                retire_unscheduled(r)
-                return
-            sched.submit(r)
-
-        for r in requests:
-            submit_one(r)
-
-        # the pool is taken only after every request validated: a
-        # ValueError above keeps the pool cache
-        mgr, pool = self._paged_state()
-        windowed = self._paged is mellum_paged
-        if windowed:
-            pool.moe_counts.zero_()    # the run's routing, read at its end
-        B = econf.max_batch
-        pps = page.pages_per_seq
-        t_start = time.monotonic()
-        graph_steps0 = self._decode_graphs.steps
-        decode_tokens = 0
-        decode_steps = 0        # device decode steps (each = L kernel calls)
-        verify_steps = 0        # of which speculative verify steps
-        single_steps = 0        # of which single-token steps
-        suffix_prefills = 0     # prefix-cache suffix prefill calls
-        prefill_calls = 0       # prefill calls, all kinds (a wave makes 1+)
-        peak_pages = 0
-        iteration = 0
-        # per-slot count of prompt tokens dropped at admission (prompt
-        # longer than the window); cache positions are relative to it
-        bases: Dict[int, int] = {}
-        # per-slot count of prompt tokens served from ADOPTED cached pages:
-        # the suffix prefill starts at this position (0 without caching)
-        cached: Dict[int, int] = {}
-        prefix_on = page.prefix_cache
-        prefix_stats = {"hit_tokens": 0, "hit_pages": 0, "registered": 0}
-        use_spec = econf.spec_k >= 2
-        spec_stats = {"steps": 0, "accepted": 0}
-        # device sampling draws from one generator on the engine's device,
-        # seeded per run; an all-greedy chain passes rng=None and keeps the
-        # greedy stream
-        sample_gen = None
-        if econf.device_sampling:
-            sample_gen = torch.Generator(device=dev)
-            sample_gen.manual_seed(econf.seed)
-
-        def requeue_evicted(evicted: List[int],
-                            skip_slot: int = -1) -> List[int]:
-            preempted = []
-            for victim in set(evicted):
-                if victim != skip_slot and victim in sched.running:
-                    mgr.free_prompt(victim)
-                    sched.preempt(victim)
-                    preempted.append(victim)
-            return preempted
-
-        def apply_stop(req: Request) -> int:
-            """Scan newly materialized tokens for a stop id; on a hit keep
-            the stop token, discard the overshoot past it (and its
-            logprobs) and mark the request stopped. Returns the discarded
-            count. Runs before notify_tokens, so streams never see
-            post-stop tokens."""
-            stops = (req.stop_tokens if req.stop_tokens is not None
-                     else econf.stop_tokens)
-            if not stops or req.stopped:
-                return 0
-            gen = req.generated
-            for k in range(getattr(req, "_stop_scanned", 0), len(gen)):
-                if gen[k] in stops:
-                    discarded = len(gen) - (k + 1)
-                    del gen[k + 1:]
-                    del req.logprob_values[k + 1:]
-                    req.stopped = True
-                    return discarded
-            req._stop_scanned = len(gen)
-            return 0
-
-        def notify_tokens(req: Request) -> None:
-            """Flush the tokens appended since the last flush (a watermark
-            on the request, so it survives preemption)."""
-            if on_tokens is None or req.cancelled:
-                return
-            n = len(req.generated)
-            sent = getattr(req, "_stream_sent", 0)
-            if n > sent:
-                with span("engine.callback"):
-                    on_tokens(req, req.generated[sent:n])
-                req._stream_sent = n
-
-        def finish_slot(slot: int) -> None:
-            req = sched.finish(slot)
-            record_finished(req)
-            # the live snapshot counts this finish before the callbacks
-            # resolve the request's future
-            update_live_stats()
-            notify_tokens(req)
-            if on_finish is not None:
-                with span("engine.callback"):
-                    on_finish(req)
-
-        def sweep_cancelled() -> None:
-            """Retire requests cancelled since the last iteration. No
-            chain is in flight at the iteration top, so a running row's
-            pages free wholesale here as a finished row's do (the device
-            runs in order). A cancel landing mid-chain is seen at that
-            chain's materialization."""
-            for req in [r for r in sched.waiting if r.cancelled]:
-                sched.waiting.remove(req)
-                retire_unscheduled(req)
-            for slot, req in list(sched.running.items()):
-                if req.cancelled:
-                    mgr.free_prompt(slot)
-                    finish_slot(slot)
-
-        def update_live_stats() -> None:
-            """Whole-dict swap, so readers on other threads (ServingEngine
-            .stats(), HTTP GET /stats) never see a partial update.
-            Counters only: a serving loop runs this every iteration."""
-            dt = time.monotonic() - t_start
-            self.live_stats = {
-                "running": len(sched.running),
-                "waiting": len(sched.waiting),
-                "finished_total": n_finished,
-                "decode_tokens": decode_tokens,
-                "decode_tok_per_s": decode_tokens / dt if dt > 0 else 0.0,
-                "pages_free": mgr.num_free(),
-                "peak_pages_used": peak_pages,
-                "preemptions": sched.preempt_count,
-                "uptime_s": dt,
-            }
-
-        def call_inputs(group, rows, lens):
-            """One prefill call's host inputs: the wave rows ``rows``
-            (indices into ``group``, of prefill lengths ``lens``), right-
-            padded to their longest row's bucket Tb. Each row counts Tb
-            padded slots. Returns (rows, xs, valid, tables, last, offs,
-            page ids, slots)."""
-            Tb = _bucket(max(lens[i] for i in rows))
-            b = len(rows)
-            xs = np.zeros((b, Tb), np.int32)
-            valid = np.zeros((b, Tb), bool)
-            tables_g = np.zeros((b, pps), np.int32)
-            last = np.zeros(b, np.int64)
-            offs = np.zeros(b, np.int32)
-            for k, i in enumerate(rows):
-                slot, req = group[i]
-                n = lens[i]
-                xs[k, :n] = req.tokens[bases[slot] + cached[slot]:]
-                valid[k, :n] = True
-                tables_g[k] = mgr.block_table_array(slot, pps)
-                last[k] = n - 1
-                offs[k] = cached[slot]          # page-aligned by adopt
-                req.prefill_slots += Tb
-            pos = offs[:, None] + np.arange(Tb, dtype=np.int32)[None, :]
-            pg, sl = token_coords(torch.from_numpy(tables_g),
-                                  torch.from_numpy(pos), page.page_size,
-                                  torch.from_numpy(valid), page.num_pages)
-            return rows, xs, valid, tables_g, last, offs, pg, sl
-
-        def poll_feed() -> None:
-            """Serving, between chain links: arrivals join the waiting
-            queue (a host queue check; nothing touches the device)."""
-            nonlocal feed_open, queue_blocked
-            with spans.caller("engine.callback"):
-                new_reqs, feed_open = feed(False)
-            for r in new_reqs:
-                submit_one(r)
-            queue_blocked = queue_blocked or bool(sched.waiting)
-
-        feed_open = feed is not None
-        # one span a pass of the loop, closed at the next pass's top: a
-        # range opens only if a profiler records when its pass starts
-        pass_span = None
-        while True:
-            if pass_span is not None:
-                pass_span.close()
-            pass_span = span("engine.iteration").open()
-            if feed_open:
-                # requests that arrived join this iteration's admission
-                # wave; an idle engine lets the feed block briefly
-                with spans.caller("engine.callback"):
-                    new_reqs, feed_open = feed(not sched.has_work)
-                for r in new_reqs:
-                    submit_one(r)
-            sweep_cancelled()
-            update_live_stats()
-            if not sched.has_work:
-                if feed_open:
-                    continue
-                break
-            iteration += 1
-            if econf.log_every and iteration % econf.log_every == 0:
-                dt = time.monotonic() - t_start
-                print(f'{{"iter": {iteration}, '
-                      f'"running": {len(sched.running)}, '
-                      f'"waiting": {len(sched.waiting)}, '
-                      f'"finished": {n_finished}, '
-                      f'"pages_free": {mgr.num_free()}, '
-                      f'"decode_tokens": {decode_tokens}, '
-                      f'"tok_per_s": {decode_tokens / dt if dt else 0:.1f}}}',
-                      flush=True)
-            # ---- admission + one batched prefill per wave ----------------
-            progressed = False
-            # (device picks, device logprobs|None, group): greedy first
-            # tokens picked on the device, fetched after the first link
-            deferred = None
-            admitted: List[Tuple[int, Request]] = []
-            admit_span = span("engine.admit").open()
-            for slot in sched.free_slots():
-                req = sched.pop_next_waiting()
-                if req is None:
-                    break
-                base = max(0, len(req.tokens) - window)
-                bases[slot] = base
-                csl = 0
-                if prefix_on:
-                    # adopt the longest cached page chain matching the known
-                    # tokens (prompt + any generated before a preemption),
-                    # capped so that at least one token is prefilled
-                    hit = mgr.match_prefix(req.tokens)
-                    hit = hit[: (len(req.tokens) - 1) // page.page_size]
-                    if hit:
-                        mgr.adopt(slot, hit)
-                        csl = len(hit) * page.page_size
-                        prefix_stats["hit_pages"] += len(hit)
-                        prefix_stats["hit_tokens"] += csl
-                cached[slot] = csl
-                segs, evicted = mgr.append_tokens(
-                    slot, len(req.tokens) - base - csl)
-                # a victim may be an earlier admission of this same wave:
-                # drop it from the wave or its prefill would write K/V
-                # through a cleared block table
-                for victim in requeue_evicted(evicted, skip_slot=slot):
-                    admitted = [(s, r) for s, r in admitted if s != victim]
-                if not segs:
-                    mgr.free_prompt(slot)
-                    sched.waiting.insert(0, req)  # retry once pool drains
-                    break
-                progressed = True
-                sched.admit(req, slot)
-                admitted.append((slot, req))
-            admit_span.close()
-            if admitted:
-                prefill_span = span("engine.prefill").open()
-                t_wave = time.monotonic()
-                group = admitted
-                lens = [len(req.tokens) - bases[slot] - cached[slot]
-                        for slot, req in group]
-                for (slot, req), n in zip(group, lens):
-                    if req.t_admit is None:
-                        req.t_admit = t_wave
-                    req.prefill_tokens += n
-                plp_rows = [(i, req) for i, (slot, req) in enumerate(group)
-                            if req.prompt_logprobs
-                            and not req.prompt_logprob_values
-                            and not req.generated]
-                plp_idx = {i for i, _ in plp_rows}
-                # every call's host inputs first, then every call queued,
-                # then the wave's outputs back in admission order
-                calls = [call_inputs(group, rows, lens)
-                         for rows in _subwaves(lens)]
-                parts = []          # (rows, (b, V) logits, (b, Tb-1) | None)
-                for rows, xs, valid, tables_g, last, offs, pg, sl in calls:
-                    prefill_calls += 1
-                    # a windowed family's prefill writes each row's window
-                    # ring, found by the row's slot
-                    rows_kw = ({"rows": torch.tensor([group[i][0]
-                                                      for i in rows])}
-                               if windowed else {})
-                    tok_lp = None
-                    if offs.any():
-                        # a row rides adopted pages: the suffix prefill
-                        # attends the cached prefix through the block table
-                        # (rows with offs 0 degenerate to plain prefill)
-                        logits, pool = gpt2_paged.prefill_suffix_paged(
-                            self._prompt_params,
-                            torch.from_numpy(xs), pg, sl, pool,
-                            torch.from_numpy(tables_g),
-                            torch.from_numpy(offs), cfg,
-                            last_pos=torch.from_numpy(last),
-                            use_kernel=self.use_kernel,
-                            model=self._model)                  # (b, V)
-                        suffix_prefills += 1
-                    elif plp_idx.intersection(rows):
-                        # scoring rows take the full (b, T, V) logits, the
-                        # next-token logprobs are taken on the device and
-                        # fetched once for the wave
-                        full, pool = self._paged.prefill_paged(
-                            self._prompt_params,
-                            torch.from_numpy(xs), pg, sl, pool, cfg,
-                            last_pos=None,
-                            use_kernel=self.use_kernel,
-                            **rows_kw)                          # (b, T, V)
-                        logits, tok_lp = _prefill_plp_extract(full, xs,
-                                                              valid, last)
-                        del full
-                    else:
-                        logits, pool = self._paged.prefill_paged(
-                            self._prompt_params,
-                            torch.from_numpy(xs), pg, sl, pool, cfg,
-                            last_pos=torch.from_numpy(last),
-                            use_kernel=self.use_kernel,
-                            model=self._model, **rows_kw)       # (b, V)
-                    parts.append((rows, logits, tok_lp))
-                lg, plp_d = _in_admission_order(parts)
-                if plp_d is not None:
-                    with span("engine.fetch"):
-                        plp = plp_d.cpu().numpy()
-                    for i, req in plp_rows:
-                        req.prompt_logprob_values = [
-                            float(v) for v in plp[i, : len(req.prompt) - 1]]
-                if prefix_on:
-                    # publish this wave's full prompt pages only now, after
-                    # the call that writes their K/V is queued (a same-wave
-                    # evictee never prefills); the device runs in order,
-                    # so a later adopter's reads see these writes
-                    for slot, req in group:
-                        prefix_stats["registered"] += mgr.register_prompt(
-                            slot, req.tokens)
-                group_reqs = [r for _, r in group]
-                group_lp = any(r.logprobs for r in group_reqs)
-                if all(_effective(sampler, r)[0] for r in group_reqs) \
-                        and not any(_has_penalties(r) for r in group_reqs):
-                    # greedy: pick on the device and fetch after the first
-                    # chain link is queued, so the download overlaps decode
-                    picks_d = torch.argmax(lg, dim=-1).int()
-                    lps_d = None
-                    if group_lp:
-                        lgf = lg.float()
-                        lps_d = (torch.gather(lgf, 1,
-                                              picks_d.long()[:, None])[:, 0]
-                                 - torch.logsumexp(lgf, dim=-1))
-                    deferred = (picks_d, lps_d, list(group))
-                else:
-                    # a sampled or penalized row draws its first token now,
-                    # from the host stream in row order
-                    with span("engine.fetch"):
-                        if any(_has_overrides(r) or _has_penalties(r)
-                               for r in group_reqs):
-                            first_toks = _sample_rows_per_request(
-                                sampler, lg, group_reqs)
-                        else:
-                            first_toks = _sample_rows(sampler, lg,
-                                                      len(group))
-                        lrows = _host(lg) if group_lp else None
-                    with span("engine.deliver"):
-                        for i, (slot, req) in enumerate(group):
-                            req.generated.append(first_toks[i])
-                            if req.logprobs:
-                                req.logprob_values.append(
-                                    _row_logprob(lrows[i], first_toks[i]))
-                            req.mark_first_token()
-                            apply_stop(req)
-                            notify_tokens(req)
-                            if req.done:
-                                mgr.free_prompt(slot)
-                                finish_slot(slot)
-                prefill_span.close()
-
-            def flush_deferred():
-                """Materialize the deferred prefill picks (and logprobs, in
-                the same copy). Runs before any path that reads
-                req.tokens[-1] on the host."""
-                nonlocal deferred, progressed
-                if deferred is None:
-                    return
-                with span("engine.fetch"):
-                    picks, lps = _fetch(deferred[0], deferred[1])
-                with span("engine.deliver"):
-                    for i, (slot, req) in enumerate(deferred[2]):
-                        req.generated.append(int(picks[i]))
-                        if req.logprobs and lps is not None:
-                            req.logprob_values.append(float(lps[i]))
-                        req.mark_first_token()
-                        apply_stop(req)
-                        notify_tokens(req)
-                        if req.done:
-                            mgr.free_prompt(slot)
-                            finish_slot(slot)
-                progressed = True
-                deferred = None
-
-            # ---- sliding-window page reclamation -------------------------
-            if window < page.max_context:
-                for slot, req in sched.running.items():
-                    start = len(req.tokens) - bases.get(slot, 0) - window
-                    if start >= page.page_size:
-                        mgr.release_below(slot, start)
-            peak_pages = max(peak_pages, page.num_pages - mgr.num_free())
-
-            # ---- chunked decode ------------------------------------------
-            chunk = 1
-            # a batch whose every row is effectively greedy chains; a
-            # stochastic row needs device sampling to chain (the host
-            # stream cannot feed back on the device)
-            all_greedy = all(_effective(sampler, r)[0]
-                             for r in sched.running.values())
-            row_overrides = any(_has_overrides(r)
-                                for r in sched.running.values())
-            chainable = all_greedy or econf.device_sampling
-            # once admission has run, anything still waiting is blocked on
-            # slots or pages: chains run anyway but stay short
-            queue_blocked = bool(sched.waiting)
-            # a streaming consumer, or a stop (seen only at
-            # materialization), caps chains at stream_links links
-            stream_cap = (econf.stream_links
-                          if any((r.stream and on_tokens is not None)
-                                 or (r.stop_tokens if r.stop_tokens
-                                     is not None else econf.stop_tokens)
-                                 for r in sched.running.values())
-                          else 0)
-
-            def cancel_pending() -> bool:
-                """A running row was cancelled from another thread: break
-                the chain at this link so the materialization retires it
-                now, not at the chain's end."""
-                return any(r.cancelled for r in sched.running.values())
-
-            def defer_counts():
-                """One not-yet-appended token per slot with a deferred
-                prefill pick."""
-                return {s: 1 for s, _ in deferred[2]} if deferred else {}
-
-            # ---- speculative chunk chain (EngineConfig.spec_k) ---------
-            # Like the chain below, but each device step VERIFIES spec_k
-            # tokens (carried token + device n-gram drafts) and yields
-            # 1..spec_k of them. Acceptance is data-dependent, so the host
-            # reserves the maximum (S*spec_k tokens a row a link) and rolls
-            # the manager back to the accepted length with truncate_to
-            # once the chain materializes.
-            if use_spec and sched.running:
-                flush_deferred()   # the spec chain reads req.tokens
-                S = max(1, econf.decode_chunk)
-                Ksp = econf.spec_k
-                TK = S * Ksp
-                ps = page.page_size
-                pending_spec: List = []   # (out dev, counts dev, plan)
-                links = 0
-                hist_d = first_d = pos0_d = None
-                pre_len: Dict[int, int] = {}
-                gen_before = {s: len(r.generated)
-                              for s, r in sched.running.items()}
-                while True:
-                    link_span = span("engine.link").open()
-                    plan: List[int] = []
-                    need_pages = 0
-                    for slot, req in sched.running.items():
-                        rem = req.max_new_tokens - gen_before[slot]
-                        if links * S >= rem:
-                            # >= 1 token is accepted a step: the row has
-                            # finished in earlier links
-                            continue
-                        ln = mgr.seq_len(slot)
-                        if ln + TK > page.max_context:
-                            continue   # no headroom for a full reservation
-                        tail = (ps - ln % ps) % ps
-                        need_pages += max(0, -(-(TK - tail) // ps))
-                        plan.append(slot)
-                    if not plan or need_pages > mgr.num_free():
-                        link_span.close()
-                        break
-                    for slot in plan:
-                        pre_len.setdefault(slot, mgr.seq_len(slot))
-                        segs, evicted = mgr.append_tokens(slot, TK)
-                        if evicted:
-                            raise RuntimeError(
-                                "free-page guard failed: eviction inside a "
-                                f"speculative chain (victims {evicted})")
-                    tables = np.zeros((B, pps), np.int32)
-                    for slot in plan:
-                        tables[slot] = mgr.block_table_array(slot, pps)
-                    if econf.debug_checks:
-                        _validate_indices(page, tables)
-                    keep = np.zeros(B, bool)
-                    keep[plan] = True
-                    if hist_d is None:
-                        hist = np.zeros((B, page.max_context + 1), np.int32)
-                        first = np.zeros(B, np.int32)
-                        pos0 = np.full(B, -1, np.int32)
-                        for slot in plan:
-                            req = sched.running[slot]
-                            hist[slot, : len(req.tokens)] = req.tokens
-                            first[slot] = req.tokens[-1]
-                            pos0[slot] = len(req.tokens) - 1
-                        hist_d, first_d, pos0_d = (
-                            to_device(torch.from_numpy(a), dev)
-                            for a in (hist, first, pos0))
-                    else:
-                        # deactivate rows that left the plan; a row never
-                        # re-enters mid-chain
-                        pos0_d = torch.where(
-                            to_device(torch.from_numpy(keep), dev),
-                            pos0_d, -1)
-                    out_d, counts_d, hist_d, first_d, pos0_d, pool = \
-                        gpt2_paged.decode_chunk_spec(
-                            self._decode_params, first_d, pos0_d, hist_d,
-                            pool, torch.from_numpy(tables), cfg,
-                            num_steps=S, spec_k=Ksp, ngram=econf.spec_ngram,
-                            use_kernel=self.use_kernel, active=keep,
-                            model=self._model)
-                    decode_steps += S
-                    verify_steps += S
-                    pending_spec.append((out_d, counts_d, list(plan)))
-                    links += 1
-                    peak_pages = max(peak_pages,
-                                     page.num_pages - mgr.num_free())
-                    if feed_open:        # serving: arrivals break chains
-                        poll_feed()
-                    update_live_stats()  # per-link snapshot
-                    link_span.close()
-                    # acceptance is data-dependent: a row MAY have finished
-                    # once links*S*spec_k covers its remaining budget
-                    may_free = any(
-                        sched.running[s].max_new_tokens - gen_before[s]
-                        <= links * S * Ksp for s in plan)
-                    if stream_cap and links >= stream_cap:
-                        break
-                    if cancel_pending():
-                        break
-                    if queue_blocked or ((feed_open or on_finish is not None)
-                                         and may_free):
-                        # under queue pressure a row may finish at ANY
-                        # link: materialize so its slot and pages free;
-                        # when serving, deliver a finished row now
-                        break
-                if pending_spec:
-                    progressed = True
-                    # one device→host copy for the whole chain: the tokens
-                    # and counts of every link in one tensor
-                    n_out = S * Ksp * B
-                    with span("engine.fetch"):
-                        flat = torch.stack([
-                            torch.cat([o.reshape(-1), c.reshape(-1)])
-                            for o, c, _ in pending_spec]).cpu().numpy()
-                    all_out = flat[:, :n_out].reshape(-1, S, Ksp, B)
-                    all_cnt = flat[:, n_out:].reshape(-1, S, B)
-                    committed = {s: 0 for s in pre_len}
-                    deliver_span = span("engine.deliver").open()
-                    for li, (_, _, plan) in enumerate(pending_spec):
-                        for slot in plan:
-                            req = sched.running[slot]
-                            for s_i in range(S):
-                                cnt = int(all_cnt[li, s_i, slot])
-                                req.generated.extend(
-                                    int(t)
-                                    for t in all_out[li, s_i, :cnt, slot])
-                            committed[slot] += int(all_cnt[li, :, slot].sum())
-                            spec_stats["steps"] += S
-                    for slot, pre in pre_len.items():
-                        req = sched.running[slot]
-                        spec_stats["accepted"] += committed[slot]
-                        mgr.truncate_to(slot, pre + committed[slot])
-                        if len(req.generated) > req.max_new_tokens:
-                            del req.generated[req.max_new_tokens:]
-                        apply_stop(req)
-                        decode_tokens += len(req.generated) - gen_before[slot]
-                        notify_tokens(req)
-                    for slot in list(sched.running):
-                        if sched.running[slot].done:
-                            mgr.free_prompt(slot)
-                            finish_slot(slot)
-                    deliver_span.close()
-                    # a row still needing tokens but WITHOUT headroom for a
-                    # full reservation can never join a spec plan: fall
-                    # through to the plain chain for it, or it would starve
-                    if not any(
-                            r.max_new_tokens > len(r.generated)
-                            and mgr.seq_len(sl) + TK > page.max_context
-                            for sl, r in sched.running.items()):
-                        continue
-                # the spec chain could not run (pool pressure, no headroom):
-                # fall through to the plain chain, which needs fewer pages
-                # a link, and the single-token step below it
-
-            dct = defer_counts()
-            if chainable and sched.running:
-                # capacity-bound only: rows that reach max_new mid-chunk are
-                # truncated on the host
-                cap = min(page.max_context
-                          - (len(r.tokens) - bases.get(s2, 0)
-                             + dct.get(s2, 0))
-                          for s2, r in sched.running.items())
-                dc = max(1, econf.decode_chunk)
-                if queue_blocked and sched.free_slots():
-                    dc = max(dc // 4, 1)   # page-blocked: shorter chunks
-                for cand in (dc, max(dc // 4, 1)):
-                    if cap >= cand > 1:
-                        chunk = cand
-                        break
-            if chunk > 1 and sched.running:
-                # chain: tokens feed back on the device within and between
-                # chunks; page coordinates are reserved ahead and each link
-                # is guarded by a free-page check, so no eviction happens
-                # mid-chain; token values come back ONCE after the chain
-                ps = page.page_size
-                # the chain's sampling mode: an all-greedy chain keeps the
-                # argmax (rng None); a uniform sampled batch passes the
-                # sampler's scalars; only per-request overrides build (B,)
-                # arrays. Everything goes up once a chain.
-                chain_rng = sample_gen is not None and not all_greedy
-                want_lp = any(r.logprobs for r in sched.running.values())
-                samp_kw = {}
-                if chain_rng and row_overrides:
-                    tarr = np.ones(B, np.float32)
-                    karr = np.zeros(B, np.int32)
-                    garr = np.zeros(B, bool)
-                    kmax = 0
-                    for slot2, r2 in sched.running.items():
-                        g2, tk2, tmp2 = _effective(sampler, r2)
-                        garr[slot2] = g2
-                        tarr[slot2] = tmp2 if not g2 else 1.0
-                        if not g2 and tk2 and tk2 < cfg.vocab_size:
-                            # tk2 >= V means no filter (the host
-                            # topk_probs bound), not a clamp to V-1
-                            karr[slot2] = tk2
-                            kmax = max(kmax, tk2)
-                    # a power-of-two cap, below V so the filter stays on
-                    kcap = (min(1 << (kmax - 1).bit_length(),
-                                cfg.vocab_size - 1) if kmax else None)
-                    karr = np.minimum(karr, kcap or 0)
-                    samp_kw = dict(
-                        rng=sample_gen, top_k=kcap,
-                        temperature=to_device(torch.from_numpy(tarr), dev),
-                        k_arr=(to_device(torch.from_numpy(karr), dev)
-                               if kcap else None),
-                        greedy_rows=to_device(torch.from_numpy(garr), dev))
-                elif chain_rng:
-                    samp_kw = dict(rng=sample_gen, top_k=sampler.top_k,
-                                   temperature=sampler.temperature)
-                # penalties thread a (B, V) count plane through the chain:
-                # built on the host from each row's full context at chain
-                # start, uploaded once, updated on the device with each
-                # pick
-                pen_kw = {}
-                if any(_has_penalties(r) for r in sched.running.values()):
-                    fparr = np.zeros(B, np.float32)
-                    pparr = np.zeros(B, np.float32)
-                    cnt0 = np.zeros((B, cfg.vocab_size), np.int32)
-                    for slot2, r2 in sched.running.items():
-                        fparr[slot2] = r2.frequency_penalty
-                        pparr[slot2] = r2.presence_penalty
-                        np.add.at(cnt0[slot2],
-                                  np.clip(np.asarray(r2.tokens), 0,
-                                          cfg.vocab_size - 1), 1)
-                    pen_kw = dict(
-                        pen_counts=to_device(torch.from_numpy(cnt0), dev),
-                        freq_pen=to_device(torch.from_numpy(fparr), dev),
-                        pres_pen=to_device(torch.from_numpy(pparr), dev))
-                pending: List = []   # (toks (chunk,B), logps|None, stepped)
-                pend_counts: Dict[int, int] = {}
-                first_dev = None
-                while True:
-                    link_span = span("engine.link").open()
-                    dct = defer_counts()
-                    need_pages = 0
-                    plan: List[int] = []
-                    for slot, req in sched.running.items():
-                        rem = (req.max_new_tokens - len(req.generated)
-                               - dct.get(slot, 0) - pend_counts.get(slot, 0))
-                        if rem <= 0:
-                            continue
-                        if window < page.max_context:
-                            # mid-chain reclamation: safe to reallocate at
-                            # once, the device stream is in order
-                            start = mgr.seq_len(slot) - window
-                            if start >= ps:
-                                mgr.release_below(slot, start)
-                        ln = mgr.seq_len(slot)
-                        if ln + chunk > page.max_context:
-                            continue
-                        tail = (ps - ln % ps) % ps
-                        need_pages += max(0, -(-(chunk - tail) // ps))
-                        plan.append(slot)
-                    if not plan or need_pages > mgr.num_free():
-                        link_span.close()
-                        break
-                    first = np.zeros(B, np.int32)
-                    pos0 = np.full(B, -1, np.int32)   # -1 → inactive row
-                    pgs = np.full((chunk, B), page.num_pages, np.int32)
-                    sls = np.zeros((chunk, B), np.int32)
-                    tables = np.zeros((B, pps), np.int32)
-                    stepped: List[Tuple[int, int]] = []
-                    will_free = False
-                    for slot in plan:
-                        req = sched.running[slot]
-                        pend_ct = pend_counts.get(slot, 0)
-                        segs, evicted = mgr.append_tokens(slot, chunk)
-                        if evicted:
-                            # an eviction here would write K/V through a
-                            # cleared block table into another sequence
-                            raise RuntimeError(
-                                "free-page guard failed: eviction inside a "
-                                f"chunk chain (victims {evicted})")
-                        coords = [(s.page, s.offset + i) for s in segs
-                                  for i in range(s.count)]
-                        if len(coords) != chunk:
-                            raise RuntimeError("chunk reservation short")
-                        first[slot] = req.tokens[-1]  # used by link 0 only
-                        pos0[slot] = (len(req.tokens) - 1 + pend_ct
-                                      + dct.get(slot, 0)
-                                      - bases.get(slot, 0))
-                        for j, (pj, sj) in enumerate(coords):
-                            pgs[j, slot], sls[j, slot] = pj, sj
-                        tables[slot] = mgr.block_table_array(slot, pps)
-                        remaining = (req.max_new_tokens - len(req.generated)
-                                     - pend_ct - dct.get(slot, 0))
-                        keep = min(chunk, remaining)
-                        stepped.append((slot, keep))
-                        pend_counts[slot] = pend_ct + keep
-                        if remaining <= chunk:
-                            will_free = True
-                    if econf.debug_checks:
-                        _validate_indices(page, tables, pgs, sls)
-                    if first_dev is not None:
-                        link_first = first_dev
-                    else:
-                        link_first = to_device(torch.from_numpy(first), dev)
-                        if deferred is not None:
-                            dslots = to_device(torch.tensor(
-                                [s for s, _ in deferred[2]]), dev)
-                            link_first[dslots] = deferred[0]
-                    res = self._paged.decode_chunk_paged(
-                        self._decode_params, link_first,
-                        torch.from_numpy(pos0),
-                        torch.from_numpy(pgs), torch.from_numpy(sls),
-                        torch.from_numpy(tables), pool, cfg,
-                        num_steps=chunk, window=window,
-                        use_kernel=self.use_kernel, want_logprobs=want_lp,
-                        model=self._model, graphs=self._decode_graphs,
-                        **samp_kw, **pen_kw)
-                    toks_out, counts_out, lp_out, pool = _unpack_chunk(
-                        res, bool(pen_kw), want_lp)
-                    if counts_out is not None:
-                        pen_kw["pen_counts"] = counts_out
-                    decode_steps += chunk
-                    first_dev = toks_out[-1]
-                    pending.append((toks_out, lp_out, stepped))
-                    # the first link is queued: fetch the deferred picks
-                    flush_deferred()
-                    peak_pages = max(peak_pages,
-                                     page.num_pages - mgr.num_free())
-                    if feed_open:        # serving: arrivals break chains
-                        poll_feed()
-                    update_live_stats()  # per-link snapshot
-                    link_span.close()
-                    if stream_cap and len(pending) >= stream_cap:
-                        break
-                    if cancel_pending():
-                        break
-                    if (feed_open or on_finish is not None) and will_free:
-                        break   # deliver the finishing row now
-                    if queue_blocked and \
-                            (will_free or window < page.max_context
-                             or sched.free_slots()):
-                        # under queue pressure, materialize as soon as a
-                        # row can finish (or pages/slots may free) so the
-                        # waiting queue gets its admission retry
-                        break
-                if pending:
-                    progressed = True
-                    flush_deferred()
-                    # one device→host copy for the whole chain: tokens and
-                    # logprobs together
-                    with span("engine.fetch"):
-                        all_picks, all_lps = _fetch(
-                            torch.stack([t for t, _, _ in pending]),
-                            torch.stack([p for _, p, _ in pending])
-                            if want_lp else None)
-                    deliver_span = span("engine.deliver").open()
-                    for li, (picks, (_, _, stepped)) in enumerate(
-                            zip(all_picks, pending)):
-                        for slot, keep in stepped:
-                            req = sched.running.get(slot)
-                            if req is None or req.stopped:
-                                continue   # finished at its first token
-                            req.generated.extend(int(t)
-                                                 for t in picks[:keep, slot])
-                            if req.logprobs and all_lps is not None:
-                                req.logprob_values.extend(
-                                    float(v)
-                                    for v in all_lps[li, :keep, slot])
-                            decode_tokens += keep
-                    for slot in {s for _, _, st in pending for s, _ in st}:
-                        req = sched.running.get(slot)
-                        if req is not None:
-                            decode_tokens -= apply_stop(req)
-                            notify_tokens(req)
-                    for slot in list(sched.running):
-                        if sched.running[slot].done:
-                            mgr.free_prompt(slot)
-                            finish_slot(slot)
-                    deliver_span.close()
-                    continue
-                chunk = 1   # no chain could run: single-token step below
-
-            # ---- single-token decode step --------------------------------
-            flush_deferred()
-            if sched.running:
-                toks = np.zeros(B, np.int32)
-                wpe_pos = np.zeros(B, np.int32)
-                pg = np.full(B, page.num_pages, np.int32)
-                sl = np.zeros(B, np.int32)
-                lengths = np.zeros(B, np.int32)
-                starts = np.zeros(B, np.int32)
-                tables = np.zeros((B, pps), np.int32)
-                stepped_s: List[int] = []
-                for slot, req in list(sched.running.items()):
-                    if slot not in sched.running:
-                        continue   # preempted by an earlier slot's eviction
-                    segs, evicted = mgr.append_tokens(slot, 1)
-                    # a victim already staged in this batch is neutralized
-                    # so its K/V write cannot hit the page's new owner
-                    for victim in requeue_evicted(evicted, skip_slot=slot):
-                        if victim in stepped_s:
-                            stepped_s.remove(victim)
-                            pg[victim] = page.num_pages
-                            lengths[victim] = 0
-                    if not segs:
-                        mgr.free_prompt(slot)
-                        sched.preempt(slot)
-                        continue
-                    pos = len(req.tokens) - 1 - bases.get(slot, 0)
-                    toks[slot] = req.tokens[-1]
-                    wpe_pos[slot] = min(pos, window - 1)
-                    pg[slot], sl[slot] = segs[0].page, segs[0].offset
-                    lengths[slot] = pos + 1
-                    starts[slot] = max(0, pos + 1 - window)
-                    tables[slot] = mgr.block_table_array(slot, pps)
-                    stepped_s.append(slot)
-                if stepped_s:
-                    progressed = True
-                    if econf.debug_checks:
-                        _validate_indices(page, tables, pg[None], sl[None],
-                                          lengths)
-                    with span("engine.step"):
-                        logits, pool = self._paged.decode_step_paged(
-                            self._decode_params, torch.from_numpy(toks),
-                            torch.from_numpy(wpe_pos), torch.from_numpy(pg),
-                            torch.from_numpy(sl), torch.from_numpy(tables),
-                            torch.from_numpy(lengths), pool, cfg,
-                            use_kernel=self.use_kernel,
-                            starts=torch.from_numpy(starts),
-                            model=self._model)
-                    decode_steps += 1
-                    single_steps += 1
-                    decode_tokens += len(stepped_s)
-                    # rows gathered in `stepped_s` order so the parity RNG
-                    # stream is consumed per stepped row, in order
-                    step_reqs = [sched.running[s] for s in stepped_s]
-                    fetch_span = span("engine.fetch").open()
-                    step_logits = logits[to_device(torch.tensor(stepped_s),
-                                                   dev)]
-                    if any(_has_overrides(r) or _has_penalties(r)
-                           for r in step_reqs):
-                        row_toks = _sample_rows_per_request(
-                            sampler, step_logits, step_reqs)
-                    else:
-                        row_toks = _sample_rows(sampler, step_logits,
-                                                len(stepped_s))
-                    lrows = (_host(step_logits)
-                             if any(r.logprobs for r in step_reqs) else None)
-                    fetch_span.close()
-                    with span("engine.deliver"):
-                        for i, (slot, tok) in enumerate(zip(stepped_s,
-                                                            row_toks)):
-                            req = sched.running[slot]
-                            req.generated.append(tok)
-                            if req.logprobs:
-                                req.logprob_values.append(
-                                    _row_logprob(lrows[i], tok))
-                            apply_stop(req)
-                            notify_tokens(req)
-                            if req.done:
-                                mgr.free_prompt(slot)
-                                finish_slot(slot)
-
-            if not progressed and not sched.running:
-                raise RuntimeError(
-                    "scheduler stalled: pool too small for any waiting "
-                    "request (need a larger page pool or shorter prompts)")
-        pass_span.close()
-
-        self._pool_cache = pool
-        update_live_stats()
-        dt = time.monotonic() - t_start
-        self.stats = {
-            "wall_s": dt,
-            "decode_tokens": decode_tokens,
-            "decode_steps": decode_steps,
-            "decode_tok_per_s": decode_tokens / dt if dt > 0 else 0.0,
-            "peak_pages_used": peak_pages,
-            "preemptions": sched.preempt_count,
-            # the last 1024 finishes: exact for batch runs, a recent
-            # window for long-lived serving
-            "p50_ttft_s": float(np.median(ttfts)) if ttfts else 0.0,
-            # host buckets, each second counted once: the dispatch
-            # buckets are the self times of their spans (a blocking fetch,
-            # delivery, the caller's callbacks and the chained steps'
-            # model.step spans are out of them), materialize the total of
-            # every blocking device-to-host fetch
-            "t_prefill_dispatch_s": round(rec.self_seconds("engine.prefill"),
-                                          4),
-            "t_chain_dispatch_s": round(rec.self_seconds("engine.link"), 4),
-            "t_step_dispatch_s": round(rec.self_seconds("engine.step"), 4),
-            "t_materialize_s": round(rec.seconds("engine.fetch"), 4),
-            "spans": rec.as_dict(),
-            "verify_steps": verify_steps,
-            "single_steps": single_steps,
-            # of the decode steps, the chained steps replayed as a graph
-            "decode_graph_steps": self._decode_graphs.steps - graph_steps0,
-            "suffix_prefills": suffix_prefills,
-            # against spans["engine.prefill"]["n"] (the waves): calls a wave
-            "prefill_calls": prefill_calls,
-        }
-        if windowed:
-            self.stats.update(mellum_paged.run_stats(pool, peak_pages))
-        if use_spec:
-            # spec_steps counts S per row per link; spec_tok_per_step is
-            # committed tokens per verify step (overshoot included): the
-            # raw acceptance of the drafting, in [1, spec_k]
-            self.stats["spec_steps"] = spec_stats["steps"]
-            self.stats["spec_tok_per_step"] = round(
-                spec_stats["accepted"] / spec_stats["steps"], 3) \
-                if spec_stats["steps"] else 0.0
-        if prefix_on:
-            # prompt tokens served from adopted pages (their prefill was
-            # skipped) and the cache's occupancy after the run
-            self.stats["prefix_hit_tokens"] = prefix_stats["hit_tokens"]
-            self.stats["prefix_hit_pages"] = prefix_stats["hit_pages"]
-            self.stats["prefix_pages_registered"] = \
-                prefix_stats["registered"]
-            self.stats["prefix_cached_pages"] = mgr.num_cached()
-        return sched.finished
+            return _Run(self, rec, requests, window, sampler, feed,
+                        on_finish, on_tokens).serve()
 
     def warmup(self, window: Optional[int] = None) -> Dict[str, float]:
         """Run the JAX package's throwaway requests through every path
@@ -1827,8 +798,13 @@ class InferenceEngine:
         prompt = list(range(1, 9))      # bucket 16, any ids work
         new = max(2, min(self.econf.decode_chunk + 2,
                          self.econf.page.max_context - len(prompt)))
-
-        def one(tag: str, **kw) -> None:
+        stages = [("default", {})]      # prefill bucket + chunk/step path
+        if self.econf.serve_logprobs and self.mesh is None:
+            if self.econf.spec_k < 2:
+                stages.append(("logprobs", {"logprobs": True}))
+            if not self.econf.page.prefix_cache:
+                stages.append(("prompt_logprobs", {"prompt_logprobs": True}))
+        for tag, kw in stages:
             t0 = time.monotonic()
             # stop_tokens=[] overrides an engine default: a junk pick on a
             # stop id would finish the request at prefill and the decode
@@ -1839,11 +815,967 @@ class InferenceEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             timings[tag] = round(time.monotonic() - t0, 3)
-
-        one("default")                  # prefill bucket + chunk/step path
-        if self.econf.serve_logprobs and self.mesh is None:
-            if self.econf.spec_k < 2:
-                one("logprobs", logprobs=True)
-            if not self.econf.page.prefix_cache:
-                one("prompt_logprobs", prompt_logprobs=True)
         return timings
+
+
+class _Run:
+    """One ``InferenceEngine.run``: its scheduler, block manager, pool and
+    counters, and its loop (``serve``). Device entries are looked up on
+    the model object's ``entries`` module at every call, as ``_fetch`` is
+    in this module, so a caller may wrap them after the engine is built."""
+
+    def __init__(self, eng: InferenceEngine, rec, requests, window,
+                 sampler, feed, on_finish, on_tokens):
+        cfg, econf = eng.cfg, eng.econf
+        eng._model.refuse(econf, eng.device, window)
+        self.window = _check_window(window, cfg)
+        self.sampler = sampler or eng._default_sampler()
+        if econf.spec_k >= 2 and not self.sampler.greedy:
+            raise ValueError(
+                "spec_k requires greedy serving: speculative verification "
+                "accepts argmax matches; rejection sampling for the "
+                "stochastic samplers is not implemented")
+        self.eng, self.rec, self.cfg, self.econf = eng, rec, cfg, econf
+        self.page = page = econf.page
+        self.feed, self.on_finish, self.on_tokens = feed, on_finish, on_tokens
+        self.sched = Scheduler(econf.max_batch)
+        # a long-lived serving loop must not grow with request count:
+        # finished requests are dropped after delivery; batch runs keep
+        # them (run() returns them)
+        self.retain_finished = feed is None
+        self.n_finished = 0
+        self.ttfts: "collections.deque" = collections.deque(maxlen=1024)
+        self.dev = eng.device
+        for r in requests:
+            self.submit(r)
+        # the pool is taken only after every request validated: a
+        # ValueError above keeps the pool cache
+        self.mgr, self.pool = eng._paged_state()
+        eng._model.start_run(self.pool)     # counters read at the run's end
+        self.B, self.pps = econf.max_batch, page.pages_per_seq
+        self.t_start = time.monotonic()
+        self.graph_steps0 = eng._decode_graphs.steps
+        self.decode_tokens = 0
+        self.decode_steps = 0   # device decode steps (each = L kernel calls)
+        self.verify_steps = 0   # of which speculative verify steps
+        self.single_steps = 0   # of which single-token steps
+        self.suffix_prefills = 0    # prefix-cache suffix prefill calls
+        self.prefill_calls = 0  # prefill calls, all kinds (a wave makes 1+)
+        self.peak_pages = 0
+        self.iteration = 0
+        # per-slot count of prompt tokens dropped at admission (prompt
+        # longer than the window); cache positions are relative to it
+        self.bases: Dict[int, int] = {}
+        # per-slot count of prompt tokens served from ADOPTED cached pages:
+        # the suffix prefill starts at this position (0 without caching)
+        self.cached: Dict[int, int] = {}
+        # prompt tokens served from adopted pages (their prefill was
+        # skipped), those pages, and the pages the run registered
+        self.prefix_stats = {"prefix_hit_tokens": 0, "prefix_hit_pages": 0,
+                             "prefix_pages_registered": 0}
+        self.spec_stats = {"steps": 0, "accepted": 0}
+        # device sampling draws from one generator on the engine's device,
+        # seeded per run; an all-greedy chain passes rng=None and keeps the
+        # greedy stream
+        self.sample_gen = (torch.Generator(device=self.dev)
+                           .manual_seed(econf.seed)
+                           if econf.device_sampling else None)
+        self.feed_open = feed is not None
+        # once admission has run, anything still waiting is blocked on
+        # slots or pages: chains run anyway but stay short
+        self.queue_blocked = False
+        # a streaming consumer, or a stop (seen only at materialization),
+        # caps chains at this many links (0: no cap)
+        self.stream_cap = 0
+        # (device picks, device logprobs|None, group): greedy first tokens
+        # picked on the device, fetched after the first link
+        self.deferred = None
+        self.progressed = False
+
+    # ---- the loop -----------------------------------------------------------
+
+    def serve(self) -> List[Request]:
+        sched, econf = self.sched, self.econf
+        # one span a pass of the loop, closed at the next pass's top: a
+        # range opens only if a profiler records when its pass starts
+        pass_span = None
+        while True:
+            if pass_span is not None:
+                pass_span.close()
+            pass_span = span("engine.iteration").open()
+            if self.feed_open:
+                # requests that arrived join this iteration's admission
+                # wave; an idle engine lets the feed block briefly
+                self.poll_feed(block=not sched.has_work)
+            self.sweep_cancelled()
+            self.update_live_stats()
+            if not sched.has_work:
+                if self.feed_open:
+                    continue
+                break
+            self.iteration += 1
+            if econf.log_every and self.iteration % econf.log_every == 0:
+                self.log()
+            self.progressed = False
+            self.deferred = None
+            group = self.admit()
+            if group:
+                self.prefill_wave(group)
+            self.reclaim()
+            self.decode()
+            if not self.progressed and not sched.running:
+                raise RuntimeError(
+                    "scheduler stalled: pool too small for any waiting "
+                    "request (need a larger page pool or shorter prompts)")
+        pass_span.close()
+        return self.end()
+
+    def log(self) -> None:
+        dt = time.monotonic() - self.t_start
+        print(f'{{"iter": {self.iteration}, '
+              f'"running": {len(self.sched.running)}, '
+              f'"waiting": {len(self.sched.waiting)}, '
+              f'"finished": {self.n_finished}, '
+              f'"pages_free": {self.mgr.num_free()}, '
+              f'"decode_tokens": {self.decode_tokens}, '
+              f'"tok_per_s": {self.decode_tokens / dt if dt else 0:.1f}}}',
+              flush=True)
+
+    def end(self) -> List[Request]:
+        """Keep the pool for the next run and write the engine's stats."""
+        eng, rec = self.eng, self.rec
+        eng._pool_cache = self.pool
+        self.update_live_stats()
+        dt = time.monotonic() - self.t_start
+        eng.stats = {
+            "wall_s": dt,
+            "decode_tokens": self.decode_tokens,
+            "decode_steps": self.decode_steps,
+            "decode_tok_per_s": self.decode_tokens / dt if dt > 0 else 0.0,
+            "peak_pages_used": self.peak_pages,
+            "preemptions": self.sched.preempt_count,
+            # the last 1024 finishes: exact for batch runs, a recent
+            # window for long-lived serving
+            "p50_ttft_s": (float(np.median(self.ttfts)) if self.ttfts
+                           else 0.0),
+            # host buckets, each second counted once: the dispatch
+            # buckets are the self times of their spans (a blocking fetch,
+            # delivery, the caller's callbacks and the chained steps'
+            # model.step spans are out of them), materialize the total of
+            # every blocking device-to-host fetch
+            "t_prefill_dispatch_s": round(rec.self_seconds("engine.prefill"),
+                                          4),
+            "t_chain_dispatch_s": round(rec.self_seconds("engine.link"), 4),
+            "t_step_dispatch_s": round(rec.self_seconds("engine.step"), 4),
+            "t_materialize_s": round(rec.seconds("engine.fetch"), 4),
+            "spans": rec.as_dict(),
+            "verify_steps": self.verify_steps,
+            "single_steps": self.single_steps,
+            # of the decode steps, the chained steps replayed as a graph
+            "decode_graph_steps": eng._decode_graphs.steps - self.graph_steps0,
+            "suffix_prefills": self.suffix_prefills,
+            # against spans["engine.prefill"]["n"] (the waves): calls a wave
+            "prefill_calls": self.prefill_calls,
+        }
+        eng.stats.update(eng._model.run_stats(self.pool, self.peak_pages))
+        if self.econf.spec_k >= 2:
+            # spec_steps counts S per row per link; spec_tok_per_step is
+            # committed tokens per verify step (overshoot included): the
+            # raw acceptance of the drafting, in [1, spec_k]
+            steps = self.spec_stats["steps"]
+            eng.stats["spec_steps"] = steps
+            eng.stats["spec_tok_per_step"] = round(
+                self.spec_stats["accepted"] / steps, 3) if steps else 0.0
+        if self.page.prefix_cache:
+            # and the cache's occupancy after the run
+            eng.stats.update(self.prefix_stats,
+                             prefix_cached_pages=self.mgr.num_cached())
+        return self.sched.finished
+
+    # ---- requests in and out ------------------------------------------------
+
+    def submit(self, r: Request) -> None:
+        if not r.cancelled:     # else cancelled before it ever reached us
+            self.eng.validate_request(r, self.window)
+        if r.cancelled or r.max_new_tokens <= 0:
+            self.retire_unscheduled(r)
+        else:
+            self.sched.submit(r)
+
+    def poll_feed(self, block: bool = False) -> None:
+        """Serving: arrivals join the waiting queue (between chain links a
+        host queue check; nothing touches the device)."""
+        with spans.caller("engine.callback"):
+            new_reqs, self.feed_open = self.feed(block)
+        for r in new_reqs:
+            self.submit(r)
+        self.queue_blocked = self.queue_blocked or bool(self.sched.waiting)
+
+    def record_finished(self, r: Request) -> None:
+        """Bookkeeping of every finish path; drops the request from
+        sched.finished under serving (it was appended just before)."""
+        self.n_finished += 1
+        if r.t_done is None:
+            r.t_done = time.monotonic()
+        if r.ttft is not None:
+            self.ttfts.append(r.ttft)
+        if not self.retain_finished:
+            self.sched.finished.pop()
+
+    def retire_unscheduled(self, r: Request) -> None:
+        r.state = State.DONE
+        self.sched.finished.append(r)
+        self.record_finished(r)
+        if self.on_finish is not None:
+            with span("engine.callback"):
+                self.on_finish(r)
+
+    def finish_slot(self, slot: int) -> None:
+        """Retire a running row: its pages free, its request finishes."""
+        self.mgr.free_prompt(slot)
+        req = self.sched.finish(slot)
+        self.record_finished(req)
+        # the live snapshot counts this finish before the callbacks
+        # resolve the request's future
+        self.update_live_stats()
+        self.notify_tokens(req)
+        if self.on_finish is not None:
+            with span("engine.callback"):
+                self.on_finish(req)
+
+    def sweep_cancelled(self) -> None:
+        """Retire requests cancelled since the last iteration. No
+        chain is in flight at the iteration top, so a running row's
+        pages free wholesale here as a finished row's do (the device
+        runs in order). A cancel landing mid-chain is seen at that
+        chain's materialization."""
+        sched = self.sched
+        for req in [r for r in sched.waiting if r.cancelled]:
+            sched.waiting.remove(req)
+            self.retire_unscheduled(req)
+        for slot, req in list(sched.running.items()):
+            if req.cancelled:
+                self.finish_slot(slot)
+
+    def update_live_stats(self) -> None:
+        """Whole-dict swap, so readers on other threads (ServingEngine
+        .stats(), HTTP GET /stats) never see a partial update.
+        Counters only: a serving loop runs this every iteration."""
+        dt = time.monotonic() - self.t_start
+        self.eng.live_stats = {
+            "running": len(self.sched.running),
+            "waiting": len(self.sched.waiting),
+            "finished_total": self.n_finished,
+            "decode_tokens": self.decode_tokens,
+            "decode_tok_per_s": self.decode_tokens / dt if dt > 0 else 0.0,
+            "pages_free": self.mgr.num_free(),
+            "peak_pages_used": self.peak_pages,
+            "preemptions": self.sched.preempt_count,
+            "uptime_s": dt,
+        }
+
+    def apply_stop(self, req: Request) -> int:
+        """Scan newly materialized tokens for a stop id; on a hit keep
+        the stop token, discard the overshoot past it (and its
+        logprobs) and mark the request stopped. Returns the discarded
+        count. Runs before notify_tokens, so streams never see
+        post-stop tokens."""
+        stops = (req.stop_tokens if req.stop_tokens is not None
+                 else self.econf.stop_tokens)
+        if not stops or req.stopped:
+            return 0
+        gen = req.generated
+        for k in range(getattr(req, "_stop_scanned", 0), len(gen)):
+            if gen[k] in stops:
+                discarded = len(gen) - (k + 1)
+                del gen[k + 1:]
+                del req.logprob_values[k + 1:]
+                req.stopped = True
+                return discarded
+        req._stop_scanned = len(gen)
+        return 0
+
+    def notify_tokens(self, req: Request) -> None:
+        """Flush the tokens appended since the last flush (a watermark
+        on the request, so it survives preemption)."""
+        if self.on_tokens is None or req.cancelled:
+            return
+        n = len(req.generated)
+        sent = getattr(req, "_stream_sent", 0)
+        if n > sent:
+            with span("engine.callback"):
+                self.on_tokens(req, req.generated[sent:n])
+            req._stream_sent = n
+
+    def deliver(self, rows, first: bool = False) -> None:
+        """Hand each row of ``rows`` (slot, request, tokens, logprobs |
+        None) its tokens and, where it asks, their logprobs, apply its
+        stop, stream what it keeps, then retire each row that is done.
+        ``first``: the prefill's first tokens, marked as such; others
+        count as decode tokens, those a stop keeps."""
+        done = []
+        for slot, req, toks, lps in rows:
+            n = len(req.generated)
+            req.generated.extend(toks)
+            if req.logprobs and lps is not None:
+                req.logprob_values.extend(lps)
+            if first:
+                req.mark_first_token()
+            self.apply_stop(req)
+            if not first:
+                self.decode_tokens += len(req.generated) - n
+            self.notify_tokens(req)
+            if req.done:
+                done.append(slot)
+        for slot in done:
+            self.finish_slot(slot)
+
+    def host_pick(self, logits, reqs: List[Request]):
+        """A token for each row of (N, V) device logits, drawn on the host
+        from the shared stream in row order (per-request transforms where
+        a row overrides the sampler or is penalized), and each row's
+        [logprob] where its request asks (None elsewhere)."""
+        if any(_has_overrides(r) or _has_penalties(r) for r in reqs):
+            toks = _sample_rows_per_request(self.sampler, logits, reqs)
+        else:
+            toks = _sample_rows(self.sampler, logits, len(reqs))
+        rows = _host(logits) if any(r.logprobs for r in reqs) else None
+        return toks, [[_row_logprob(rows[i], t)] if r.logprobs else None
+                      for i, (r, t) in enumerate(zip(reqs, toks))]
+
+    # ---- admission and the prefill wave -------------------------------------
+
+    def requeue_evicted(self, evicted: List[int],
+                        skip_slot: int = -1) -> List[int]:
+        preempted = []
+        for victim in set(evicted):
+            if victim != skip_slot and victim in self.sched.running:
+                self.mgr.free_prompt(victim)
+                self.sched.preempt(victim)
+                preempted.append(victim)
+        return preempted
+
+    def admit(self) -> List[Tuple[int, Request]]:
+        """Waiting requests into free slots while the pool has pages (a
+        request first adopts its longest cached prefix). Returns the
+        wave's (slot, request) rows in admission order."""
+        sched, mgr, ps = self.sched, self.mgr, self.page.page_size
+        admitted: List[Tuple[int, Request]] = []
+        with span("engine.admit"):
+            for slot in sched.free_slots():
+                req = sched.pop_next_waiting()
+                if req is None:
+                    break
+                base = max(0, len(req.tokens) - self.window)
+                self.bases[slot] = base
+                csl = 0
+                if self.page.prefix_cache:
+                    # adopt the longest cached page chain matching the
+                    # known tokens (prompt + any generated before a
+                    # preemption), capped so at least one token is prefilled
+                    hit = mgr.match_prefix(req.tokens)
+                    hit = hit[: (len(req.tokens) - 1) // ps]
+                    if hit:
+                        mgr.adopt(slot, hit)
+                        csl = len(hit) * ps
+                        self.prefix_stats["prefix_hit_pages"] += len(hit)
+                        self.prefix_stats["prefix_hit_tokens"] += csl
+                self.cached[slot] = csl
+                segs, evicted = mgr.append_tokens(
+                    slot, len(req.tokens) - base - csl)
+                # a victim may be an earlier admission of this same wave:
+                # drop it from the wave or its prefill would write K/V
+                # through a cleared block table
+                for victim in self.requeue_evicted(evicted, skip_slot=slot):
+                    admitted = [(s, r) for s, r in admitted if s != victim]
+                if not segs:
+                    mgr.free_prompt(slot)
+                    sched.waiting.insert(0, req)  # retry once pool drains
+                    break
+                self.progressed = True
+                sched.admit(req, slot)
+                admitted.append((slot, req))
+        return admitted
+
+    def call_inputs(self, group, rows, lens):
+        """One prefill call's host inputs (rows, xs, valid, tables, last,
+        offs, page ids, slots): the wave rows ``rows`` (of lengths
+        ``lens``) right-padded to their longest's bucket Tb, counted as
+        Tb padded slots a row."""
+        page = self.page
+        Tb = _bucket(max(lens[i] for i in rows))
+        b = len(rows)
+        xs = np.zeros((b, Tb), np.int32)
+        valid = np.zeros((b, Tb), bool)
+        tables_g = np.zeros((b, self.pps), np.int32)
+        last = np.zeros(b, np.int64)
+        offs = np.zeros(b, np.int32)
+        for k, i in enumerate(rows):
+            slot, req = group[i]
+            n = lens[i]
+            xs[k, :n] = req.tokens[self.bases[slot] + self.cached[slot]:]
+            valid[k, :n] = True
+            tables_g[k] = self.mgr.block_table_array(slot, self.pps)
+            last[k] = n - 1
+            offs[k] = self.cached[slot]          # page-aligned by adopt
+            req.prefill_slots += Tb
+        pos = offs[:, None] + np.arange(Tb, dtype=np.int32)[None, :]
+        pg, sl = token_coords(torch.from_numpy(tables_g),
+                              torch.from_numpy(pos), page.page_size,
+                              torch.from_numpy(valid), page.num_pages)
+        return rows, xs, valid, tables_g, last, offs, pg, sl
+
+    def prefill_wave(self, group) -> None:
+        """Every call's host inputs, then every call queued, then the
+        outputs in admission order, prompt logprobs fetched once, and the
+        wave's first tokens."""
+        with span("engine.prefill"):
+            t_wave = time.monotonic()
+            lens = [len(req.tokens) - self.bases[slot] - self.cached[slot]
+                    for slot, req in group]
+            for (slot, req), n in zip(group, lens):
+                if req.t_admit is None:
+                    req.t_admit = t_wave
+                req.prefill_tokens += n
+            plp_rows = [(i, req) for i, (slot, req) in enumerate(group)
+                        if req.prompt_logprobs
+                        and not req.prompt_logprob_values
+                        and not req.generated]
+            plp_idx = {i for i, _ in plp_rows}
+            calls = [self.call_inputs(group, rows, lens)
+                     for rows in _subwaves(lens)]
+            lg, plp_d = _in_admission_order(
+                [self.prefill_call(group, call, plp_idx) for call in calls])
+            if plp_d is not None:
+                with span("engine.fetch"):
+                    plp = plp_d.cpu().numpy()
+                for i, req in plp_rows:
+                    req.prompt_logprob_values = [
+                        float(v) for v in plp[i, : len(req.prompt) - 1]]
+            if self.page.prefix_cache:
+                # publish this wave's full prompt pages only now, after
+                # the call that writes their K/V is queued (a same-wave
+                # evictee never prefills); the device runs in order,
+                # so a later adopter's reads see these writes
+                for slot, req in group:
+                    self.prefix_stats["prefix_pages_registered"] += \
+                        self.mgr.register_prompt(slot, req.tokens)
+            self.first_tokens(lg, group)
+
+    def prefill_call(self, group, call, plp_idx):
+        """Queue one prefill call of the wave. Returns (rows, (b, V)
+        logits, (b, Tb-1) prompt logprobs | None)."""
+        eng = self.eng
+        rows, xs, valid, tables_g, last, offs, pg, sl = call
+        self.prefill_calls += 1
+        if offs.any():
+            # a row rides adopted pages: the suffix prefill attends the
+            # cached prefix through the block table (rows with offs 0
+            # degenerate to plain prefill)
+            logits, self.pool = eng._model.entries.prefill_suffix_paged(
+                eng._prompt_params, torch.from_numpy(xs), pg, sl, self.pool,
+                torch.from_numpy(tables_g), torch.from_numpy(offs), self.cfg,
+                last_pos=torch.from_numpy(last), use_kernel=eng.use_kernel,
+                model=eng._model)                           # (b, V)
+            self.suffix_prefills += 1
+            return rows, logits, None
+        # scoring rows take the full (b, T, V) logits, the next-token
+        # logprobs are taken on the device and fetched once for the wave;
+        # a family with window rings finds each row's by its slot
+        full = bool(plp_idx.intersection(rows))
+        logits, self.pool = eng._model.entries.prefill_paged(
+            eng._prompt_params, torch.from_numpy(xs), pg, sl, self.pool,
+            self.cfg, last_pos=None if full else torch.from_numpy(last),
+            use_kernel=eng.use_kernel, model=eng._model,
+            rows=torch.tensor([group[i][0] for i in rows]))
+        if not full:
+            return rows, logits, None                      # (b, V)
+        return (rows, *_prefill_plp_extract(logits, xs, valid, last))
+
+    def first_tokens(self, lg, group) -> None:
+        """The wave's first tokens: a greedy wave picks on the device and
+        fetches after the first link is queued, overlapping decode; a
+        sampled or penalized row draws now from the host stream."""
+        reqs = [r for _, r in group]
+        if all(_effective(self.sampler, r)[0] for r in reqs) \
+                and not any(_has_penalties(r) for r in reqs):
+            picks_d = torch.argmax(lg, dim=-1).int()
+            lps_d = None
+            if any(r.logprobs for r in reqs):
+                lgf = lg.float()
+                lps_d = (torch.gather(lgf, 1, picks_d.long()[:, None])[:, 0]
+                         - torch.logsumexp(lgf, dim=-1))
+            self.deferred = (picks_d, lps_d, list(group))
+            return
+        with span("engine.fetch"):
+            toks, lps = self.host_pick(lg, reqs)
+        with span("engine.deliver"):
+            self.deliver(((slot, req, [t], lp) for (slot, req), t, lp
+                          in zip(group, toks, lps)), first=True)
+
+    def flush_deferred(self) -> None:
+        """Materialize the deferred prefill picks (and logprobs, in the
+        same copy), before any path reads req.tokens[-1] on the host."""
+        if self.deferred is None:
+            return
+        picks_d, lps_d, group = self.deferred
+        with span("engine.fetch"):
+            picks, lps = _fetch(picks_d, lps_d)
+        with span("engine.deliver"):
+            self.deliver(((slot, req, picks[i:i + 1].tolist(),
+                           None if lps is None else lps[i:i + 1].tolist())
+                          for i, (slot, req) in enumerate(group)), first=True)
+        self.progressed = True
+        self.deferred = None
+
+    def defer_counts(self) -> Dict[int, int]:
+        """One not-yet-appended token a slot with a deferred pick."""
+        return {s: 1 for s, _ in self.deferred[2]} if self.deferred else {}
+
+    def reclaim(self) -> None:
+        """Sliding-window page reclamation, and the pool's peak."""
+        page = self.page
+        if self.window < page.max_context:
+            for slot, req in self.sched.running.items():
+                start = len(req.tokens) - self.bases.get(slot, 0) - self.window
+                if start >= page.page_size:
+                    self.mgr.release_below(slot, start)
+        self.peak_pages = max(self.peak_pages,
+                              page.num_pages - self.mgr.num_free())
+
+    # ---- decode -------------------------------------------------------------
+
+    def decode(self) -> None:
+        """A speculative chain where it runs; else a plain chain where
+        every row is greedy or sampling is on the device (the host stream
+        cannot feed back on the device); else a single-token step."""
+        sched, econf, page = self.sched, self.econf, self.page
+        running = sched.running
+        all_greedy = all(_effective(self.sampler, r)[0]
+                         for r in running.values())
+        row_overrides = any(_has_overrides(r) for r in running.values())
+        self.queue_blocked = bool(sched.waiting)
+        self.stream_cap = econf.stream_links if any(
+            (r.stream and self.on_tokens is not None)
+            or (r.stop_tokens if r.stop_tokens is not None
+                else econf.stop_tokens) for r in running.values()) else 0
+        if econf.spec_k >= 2 and running and self.spec_chain():
+            return
+        if (all_greedy or econf.device_sampling) and running:
+            # capacity-bound only: rows that reach max_new mid-chunk are
+            # truncated on the host
+            dct = self.defer_counts()
+            cap = min(page.max_context
+                      - (len(r.tokens) - self.bases.get(s, 0)
+                         + dct.get(s, 0))
+                      for s, r in running.items())
+            chunk = _chain_length(econf.decode_chunk, cap,
+                                  self.queue_blocked
+                                  and bool(sched.free_slots()))
+            if chunk > 1 and self.plain_chain(chunk, all_greedy,
+                                              row_overrides):
+                return
+        # no chain could run: a single-token step
+        self.flush_deferred()
+        if running:
+            self.single_step()
+
+    def link_plan(self, rows: List[int], length: int) -> List[int]:
+        """Of ``rows`` (slots with budget left), those with headroom for a
+        link of ``length`` tokens a row; none where the free pages cannot
+        take the link (the free-page guard: no eviction mid-chain)."""
+        ps, max_context = self.page.page_size, self.page.max_context
+        need_pages, plan = 0, []
+        for slot in rows:
+            ln = self.mgr.seq_len(slot)
+            if ln + length > max_context:
+                continue
+            tail = (ps - ln % ps) % ps
+            need_pages += max(0, -(-(length - tail) // ps))
+            plan.append(slot)
+        return plan if plan and need_pages <= self.mgr.num_free() else []
+
+    def link_queued(self, link_span, links: int) -> bool:
+        """After a link is queued: the pool's peak, the feed polled, the
+        live snapshot, the span closed. Whether the chain breaks here: at
+        the stream cap, or for a row cancelled from another thread (the
+        materialization retires it now, not at the chain's end)."""
+        self.peak_pages = max(self.peak_pages,
+                              self.page.num_pages - self.mgr.num_free())
+        if self.feed_open:
+            self.poll_feed()
+        self.update_live_stats()
+        link_span.close()
+        return (bool(self.stream_cap) and links >= self.stream_cap
+                or any(r.cancelled for r in self.sched.running.values()))
+
+    def spec_chain(self) -> bool:
+        """A chain of speculative links: each device step VERIFIES spec_k
+        tokens (carried token + device n-gram drafts) and yields 1..spec_k
+        of them, so the host reserves S*spec_k tokens a row a link and
+        rolls back with truncate_to once the chain materializes. Whether
+        the pass is done: not when no link could run (pool pressure, no
+        headroom) or a row without headroom still needs tokens, which the
+        plain chain (fewer pages a link) or a single step then serve."""
+        econf, page, sched, mgr = self.econf, self.page, self.sched, self.mgr
+        eng, B, pps, dev = self.eng, self.B, self.pps, self.dev
+        self.flush_deferred()   # the spec chain reads req.tokens
+        S = max(1, econf.decode_chunk)
+        TK = S * econf.spec_k
+        pending: List = []      # (out dev, counts dev, plan)
+        hist_d = first_d = pos0_d = None
+        pre_len: Dict[int, int] = {}
+        gen_before = {s: len(r.generated) for s, r in sched.running.items()}
+        while True:
+            link_span = span("engine.link").open()
+            # >= 1 token is accepted a step: a row whose budget the links
+            # so far cover has finished in them
+            plan = self.link_plan(
+                [s for s, r in sched.running.items()
+                 if r.max_new_tokens - gen_before[s] > len(pending) * S], TK)
+            if not plan:
+                link_span.close()
+                break
+            tables = np.zeros((B, pps), np.int32)
+            for slot in plan:
+                pre_len.setdefault(slot, mgr.seq_len(slot))
+                segs, evicted = mgr.append_tokens(slot, TK)
+                if evicted:
+                    raise RuntimeError(
+                        "free-page guard failed: eviction inside a "
+                        f"speculative chain (victims {evicted})")
+                tables[slot] = mgr.block_table_array(slot, pps)
+            if econf.debug_checks:
+                _validate_indices(page, tables)
+            keep = np.zeros(B, bool)
+            keep[plan] = True
+            if hist_d is None:
+                hist = np.zeros((B, page.max_context + 1), np.int32)
+                first = np.zeros(B, np.int32)
+                pos0 = np.full(B, -1, np.int32)
+                for slot in plan:
+                    req = sched.running[slot]
+                    hist[slot, : len(req.tokens)] = req.tokens
+                    first[slot] = req.tokens[-1]
+                    pos0[slot] = len(req.tokens) - 1
+                hist_d, first_d, pos0_d = (
+                    to_device(torch.from_numpy(a), dev)
+                    for a in (hist, first, pos0))
+            else:
+                # deactivate rows that left the plan; a row never
+                # re-enters mid-chain
+                pos0_d = torch.where(
+                    to_device(torch.from_numpy(keep), dev), pos0_d, -1)
+            out_d, counts_d, hist_d, first_d, pos0_d, self.pool = \
+                eng._model.entries.decode_chunk_spec(
+                    eng._decode_params, first_d, pos0_d, hist_d, self.pool,
+                    torch.from_numpy(tables), self.cfg, num_steps=S,
+                    spec_k=econf.spec_k, ngram=econf.spec_ngram,
+                    use_kernel=eng.use_kernel, active=keep, model=eng._model)
+            self.decode_steps += S
+            self.verify_steps += S
+            pending.append((out_d, counts_d, list(plan)))
+            if self.link_queued(link_span, len(pending)):
+                break
+            # acceptance is data-dependent: a row MAY have finished once
+            # links*S*spec_k covers its remaining budget
+            may_free = any(sched.running[s].max_new_tokens - gen_before[s]
+                           <= len(pending) * TK for s in plan)
+            if self.queue_blocked or (
+                    (self.feed_open or self.on_finish is not None)
+                    and may_free):
+                # under queue pressure a row may finish at ANY link:
+                # materialize so its slot and pages free; when serving,
+                # deliver a finished row now
+                break
+        if not pending:
+            return False
+        self.progressed = True
+        self.spec_deliver(pending, pre_len, S)
+        # a row still needing tokens but WITHOUT headroom for a full
+        # reservation can never join a spec plan: it would starve
+        return not any(r.max_new_tokens > len(r.generated)
+                       and mgr.seq_len(s) + TK > page.max_context
+                       for s, r in sched.running.items())
+
+    def spec_deliver(self, pending, pre_len, S: int) -> None:
+        """One device→host copy of every link's tokens and acceptance
+        counts; each row's reservation rolled back to its accepted tokens,
+        which are cut to its budget and delivered."""
+        B, Ksp = self.B, self.econf.spec_k
+        n_out = S * Ksp * B
+        with span("engine.fetch"):
+            flat = torch.stack([
+                torch.cat([o.reshape(-1), c.reshape(-1)])
+                for o, c, _ in pending]).cpu().numpy()
+        all_out = flat[:, :n_out].reshape(-1, S, Ksp, B)
+        all_cnt = flat[:, n_out:].reshape(-1, S, B)
+        rows = []
+        with span("engine.deliver"):
+            for slot, pre in pre_len.items():
+                req = self.sched.running[slot]
+                links = [li for li, (*_, plan) in enumerate(pending)
+                         if slot in plan]
+                toks = [int(t) for li in links for s_i in range(S)
+                        for t in all_out[li, s_i, :all_cnt[li, s_i, slot],
+                                         slot]]
+                self.spec_stats["steps"] += S * len(links)
+                self.spec_stats["accepted"] += len(toks)
+                self.mgr.truncate_to(slot, pre + len(toks))
+                rows.append((slot, req,
+                             toks[: req.max_new_tokens - len(req.generated)],
+                             None))
+            self.deliver(rows)
+
+    def chain_sampling(self, all_greedy: bool, row_overrides: bool) -> dict:
+        """The chain's sampling: all-greedy keeps the argmax (no rng); a
+        uniform sampled batch passes the sampler's scalars; only
+        per-request overrides build (B,) arrays, uploaded once a chain."""
+        if self.sample_gen is None or all_greedy:
+            return {}
+        if not row_overrides:
+            return dict(rng=self.sample_gen, top_k=self.sampler.top_k,
+                        temperature=self.sampler.temperature)
+        B, V, dev = self.B, self.cfg.vocab_size, self.dev
+        tarr = np.ones(B, np.float32)
+        karr = np.zeros(B, np.int32)
+        garr = np.zeros(B, bool)
+        kmax = 0
+        for slot, r in self.sched.running.items():
+            g, tk, tmp = _effective(self.sampler, r)
+            garr[slot] = g
+            tarr[slot] = tmp if not g else 1.0
+            if not g and tk and tk < V:
+                # tk >= V means no filter (the host topk_probs bound),
+                # not a clamp to V-1
+                karr[slot] = tk
+                kmax = max(kmax, tk)
+        # a power-of-two cap, below V so the filter stays on
+        kcap = min(1 << (kmax - 1).bit_length(), V - 1) if kmax else None
+        karr = np.minimum(karr, kcap or 0)
+        return dict(
+            rng=self.sample_gen, top_k=kcap,
+            temperature=to_device(torch.from_numpy(tarr), dev),
+            k_arr=(to_device(torch.from_numpy(karr), dev) if kcap else None),
+            greedy_rows=to_device(torch.from_numpy(garr), dev))
+
+    def chain_penalties(self) -> dict:
+        """Penalties thread a (B, V) count plane through the chain: built
+        on the host from each row's full context at chain start,
+        uploaded once, updated on the device with each pick."""
+        running = self.sched.running
+        if not any(_has_penalties(r) for r in running.values()):
+            return {}
+        B, V, dev = self.B, self.cfg.vocab_size, self.dev
+        fparr = np.zeros(B, np.float32)
+        pparr = np.zeros(B, np.float32)
+        cnt0 = np.zeros((B, V), np.int32)
+        for slot, r in running.items():
+            fparr[slot] = r.frequency_penalty
+            pparr[slot] = r.presence_penalty
+            np.add.at(cnt0[slot], np.clip(np.asarray(r.tokens), 0, V - 1), 1)
+        return dict(pen_counts=to_device(torch.from_numpy(cnt0), dev),
+                    freq_pen=to_device(torch.from_numpy(fparr), dev),
+                    pres_pen=to_device(torch.from_numpy(pparr), dev))
+
+    def plain_chain(self, chunk: int, all_greedy: bool,
+                    row_overrides: bool) -> bool:
+        """A chain of ``chunk``-step links, tokens fed back on the device,
+        pages reserved ahead under the free-page guard, token values
+        fetched ONCE after the chain. Returns whether a link ran."""
+        sched, page, mgr = self.sched, self.page, self.mgr
+        samp_kw = self.chain_sampling(all_greedy, row_overrides)
+        pen_kw = self.chain_penalties()
+        want_lp = any(r.logprobs for r in sched.running.values())
+        pending: List = []      # (toks (chunk, B), logps | None, stepped)
+        pend_counts: Dict[int, int] = {}
+        first_dev = None
+        while True:
+            link_span = span("engine.link").open()
+            dct = self.defer_counts()
+            rows = [s for s, r in sched.running.items()
+                    if r.max_new_tokens - len(r.generated) - dct.get(s, 0)
+                    - pend_counts.get(s, 0) > 0]
+            if self.window < page.max_context:
+                # mid-chain reclamation: safe to reallocate at once, the
+                # device stream is in order
+                for slot in rows:
+                    start = mgr.seq_len(slot) - self.window
+                    if start >= page.page_size:
+                        mgr.release_below(slot, start)
+            plan = self.link_plan(rows, chunk)
+            if not plan:
+                link_span.close()
+                break
+            toks_out, lp_out, stepped, will_free = self.plain_link(
+                plan, chunk, dct, pend_counts, first_dev, want_lp, samp_kw,
+                pen_kw)
+            first_dev = toks_out[-1]
+            pending.append((toks_out, lp_out, stepped))
+            # the first link is queued: fetch the deferred picks
+            self.flush_deferred()
+            if self.link_queued(link_span, len(pending)):
+                break
+            if (self.feed_open or self.on_finish is not None) and will_free:
+                break   # deliver the finishing row now
+            if self.queue_blocked and \
+                    (will_free or self.window < page.max_context
+                     or sched.free_slots()):
+                # under queue pressure, materialize as soon as a row can
+                # finish (or pages/slots may free) so the waiting queue
+                # gets its admission retry
+                break
+        if not pending:
+            return False
+        self.progressed = True
+        self.chain_deliver(pending, want_lp)
+        return True
+
+    def plain_link(self, plan, chunk, dct, pend_counts, first_dev, want_lp,
+                   samp_kw, pen_kw):
+        """Reserve ``chunk`` tokens a row of ``plan`` and queue the link:
+        (tokens (chunk, B), logprobs | None, [(slot, tokens kept)],
+        whether a row can finish in it)."""
+        eng, page, sched, mgr = self.eng, self.page, self.sched, self.mgr
+        B, pps = self.B, self.pps
+        first = np.zeros(B, np.int32)
+        pos0 = np.full(B, -1, np.int32)   # -1 → inactive row
+        pgs = np.full((chunk, B), page.num_pages, np.int32)
+        sls = np.zeros((chunk, B), np.int32)
+        tables = np.zeros((B, pps), np.int32)
+        stepped: List[Tuple[int, int]] = []
+        will_free = False
+        for slot in plan:
+            req = sched.running[slot]
+            pend_ct = pend_counts.get(slot, 0)
+            segs, evicted = mgr.append_tokens(slot, chunk)
+            if evicted:
+                # an eviction here would write K/V through a cleared block
+                # table into another sequence
+                raise RuntimeError(
+                    "free-page guard failed: eviction inside a "
+                    f"chunk chain (victims {evicted})")
+            coords = [(s.page, s.offset + i) for s in segs
+                      for i in range(s.count)]
+            if len(coords) != chunk:
+                raise RuntimeError("chunk reservation short")
+            first[slot] = req.tokens[-1]  # used by link 0 only
+            pos0[slot] = (len(req.tokens) - 1 + pend_ct + dct.get(slot, 0)
+                          - self.bases.get(slot, 0))
+            for j, (pj, sj) in enumerate(coords):
+                pgs[j, slot], sls[j, slot] = pj, sj
+            tables[slot] = mgr.block_table_array(slot, pps)
+            remaining = (req.max_new_tokens - len(req.generated)
+                         - pend_ct - dct.get(slot, 0))
+            keep = min(chunk, remaining)
+            stepped.append((slot, keep))
+            pend_counts[slot] = pend_ct + keep
+            if remaining <= chunk:
+                will_free = True
+        if self.econf.debug_checks:
+            _validate_indices(page, tables, pgs, sls)
+        if first_dev is None:
+            first_dev = to_device(torch.from_numpy(first), self.dev)
+            if self.deferred is not None:
+                dslots = to_device(torch.tensor(
+                    [s for s, _ in self.deferred[2]]), self.dev)
+                first_dev[dslots] = self.deferred[0]
+        res = eng._model.entries.decode_chunk_paged(
+            eng._decode_params, first_dev, torch.from_numpy(pos0),
+            torch.from_numpy(pgs), torch.from_numpy(sls),
+            torch.from_numpy(tables), self.pool, self.cfg,
+            num_steps=chunk, window=self.window, use_kernel=eng.use_kernel,
+            want_logprobs=want_lp, model=eng._model,
+            graphs=eng._decode_graphs, **samp_kw, **pen_kw)
+        # (out[, counts][, logps], pool): the penalty plane carries on
+        self.pool = res[-1]
+        if pen_kw:
+            pen_kw["pen_counts"] = res[1]
+        self.decode_steps += chunk
+        return res[0], res[-2] if want_lp else None, stepped, will_free
+
+    def chain_deliver(self, pending, want_lp: bool) -> None:
+        """One device→host copy of the chain's tokens and logprobs, then
+        each stepped row's kept tokens delivered."""
+        self.flush_deferred()
+        with span("engine.fetch"):
+            all_picks, all_lps = _fetch(
+                torch.stack([t for t, _, _ in pending]),
+                torch.stack([p for _, p, _ in pending]) if want_lp else None)
+        with span("engine.deliver"):
+            # the steps each link kept of each row (row, link, step); the
+            # kept tokens (and logprobs) in one list, a row's at [lo, hi)
+            keep = np.zeros((self.B, len(pending), 1), np.int64)
+            for li, (_, _, stepped) in enumerate(pending):
+                for slot, k in stepped:
+                    keep[slot, li, 0] = k
+            kept = np.arange(all_picks.shape[1]) < keep
+            n = kept.sum(axis=(1, 2))
+            lo, hi = (np.cumsum(n) - n).tolist(), np.cumsum(n).tolist()
+            toks = all_picks.transpose(2, 0, 1)[kept].tolist()
+            lps = (all_lps.transpose(2, 0, 1)[kept].tolist() if want_lp
+                   else None)
+            # in running order; none for a row stopped at its first token
+            self.deliver(
+                (slot, req, [] if req.stopped else toks[lo[slot]:hi[slot]],
+                 None if lps is None else lps[lo[slot]:hi[slot]])
+                for slot, req in self.sched.running.items()
+                if hi[slot] > lo[slot])
+
+    def single_step(self) -> None:
+        """One token for every running row, drawn on the host, its page
+        appended with LRU preemption and requeue of the victims."""
+        eng, page, sched, mgr = self.eng, self.page, self.sched, self.mgr
+        B, pps, window = self.B, self.pps, self.window
+        toks = np.zeros(B, np.int32)
+        pg = np.full(B, page.num_pages, np.int32)
+        sl = np.zeros(B, np.int32)
+        lengths = np.zeros(B, np.int32)     # a stepped row's position + 1
+        tables = np.zeros((B, pps), np.int32)
+        stepped: List[int] = []
+        for slot, req in list(sched.running.items()):
+            if slot not in sched.running:
+                continue   # preempted by an earlier slot's eviction
+            segs, evicted = mgr.append_tokens(slot, 1)
+            # a victim already staged in this batch is neutralized
+            # so its K/V write cannot hit the page's new owner
+            for victim in self.requeue_evicted(evicted, skip_slot=slot):
+                if victim in stepped:
+                    stepped.remove(victim)
+                    pg[victim] = page.num_pages
+                    lengths[victim] = 0
+            if not segs:
+                mgr.free_prompt(slot)
+                sched.preempt(slot)
+                continue
+            toks[slot] = req.tokens[-1]
+            pg[slot], sl[slot] = segs[0].page, segs[0].offset
+            lengths[slot] = len(req.tokens) - self.bases.get(slot, 0)
+            tables[slot] = mgr.block_table_array(slot, pps)
+            stepped.append(slot)
+        if not stepped:
+            return
+        self.progressed = True
+        if self.econf.debug_checks:
+            _validate_indices(page, tables, pg[None], sl[None], lengths)
+        wpe_pos = np.clip(lengths - 1, 0, window - 1)
+        starts = np.maximum(lengths - window, 0)
+        with span("engine.step"):
+            logits, self.pool = eng._model.entries.decode_step_paged(
+                eng._decode_params, torch.from_numpy(toks),
+                torch.from_numpy(wpe_pos), torch.from_numpy(pg),
+                torch.from_numpy(sl), torch.from_numpy(tables),
+                torch.from_numpy(lengths), self.pool, self.cfg,
+                use_kernel=eng.use_kernel, starts=torch.from_numpy(starts),
+                model=eng._model)
+        self.decode_steps += 1
+        self.single_steps += 1
+        # rows gathered in `stepped` order so the parity RNG stream is
+        # consumed per stepped row, in order
+        reqs = [sched.running[s] for s in stepped]
+        with span("engine.fetch"):
+            picks, lps = self.host_pick(
+                logits[to_device(torch.tensor(stepped), self.dev)], reqs)
+        with span("engine.deliver"):
+            self.deliver((s, r, [t], lp) for s, r, t, lp
+                         in zip(stepped, reqs, picks, lps))

@@ -38,6 +38,8 @@ device sync either.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 import torch.nn.functional as F
 
@@ -47,6 +49,7 @@ from llmc_paged_tpu_torch.kv.layouts import (
     QuantPagePool,
     commit_layer_kv,
     commit_layer_kv_quant,
+    init_pool,
     prompt_page_ids,
     to_device,
     write_layer_kv,
@@ -87,9 +90,30 @@ class SingleDevice:
     The chained decode step (``_chain_step``) reads a model through the
     ``chain_*`` pieces below; GPT-2's are these, and another family's
     model object gives its own (models/mellum_paged.py). ``graphs``: its
-    chain step may replay as a CUDA graph (``graph_eligible``)."""
+    chain step may replay as a CUDA graph (``graph_eligible``). The
+    engine knows the family only through this object: the module of its
+    device entries (``entries``, where each call is looked up), its pool
+    of ``max_seqs`` rows, its refusals and its counters of a run."""
 
     graphs = True
+    entries = sys.modules[__name__]
+
+    @staticmethod
+    def refuse(econf, device, window=None) -> None:
+        """Raise ValueError, naming the family and the option, for what
+        it does not serve: an engine option (``econf`` on ``device``,
+        None being the card) or ``run(window=...)``. GPT-2 serves all."""
+
+    def new_pool(self, cfg, page, dtype, device, max_seqs: int):
+        return init_pool(cfg, page, dtype=dtype, device=device)
+
+    @staticmethod
+    def start_run(pool) -> None:
+        """Reset the family's device counters (GPT-2 has none)."""
+
+    @staticmethod
+    def run_stats(pool, peak_pages: int) -> dict:
+        return {}
 
     @staticmethod
     def heads(cfg: GPT2Config) -> int:
@@ -704,19 +728,20 @@ def decode_chunk_spec(params, first_tokens, positions0, hist,
 @torch.no_grad()
 def prefill_paged(params, tokens, page, slot, pool: PagePool,
                   cfg: GPT2Config, last_pos=None, use_kernel: bool = True,
-                  model=SINGLE):
+                  model=SINGLE, rows=None):
     """Prompt forward that writes all T tokens' K/V into the pool.
 
     tokens (B, T) right-padded prompts; page (B, T) pool page per token
     (num_pages on padding → dropped). PRECONDITION: prompts start at
     position 0 of freshly allocated pages, so token t's slot is
-    t % page_size; ``slot`` is accepted for signature symmetry only.
+    t % page_size; ``slot`` and ``rows`` (each row's engine slot, which
+    another family's pool reads) are accepted for signature symmetry only.
     Attention is causal over the in-flight K/V (``model.prompt_attention``;
     on one device the flash kernel for long bf16 waves, dense otherwise
     or with ``use_kernel=False``). ``last_pos`` (B,):
     project logits only at each row's position last_pos[b] → (B, V);
     None → (B, T, V). Returns (logits, pool)."""
-    del slot
+    del slot, rows
     dev = _dev(params)
     tokens = to_device(tokens, dev)
     B, T = tokens.shape

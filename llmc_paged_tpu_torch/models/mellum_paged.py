@@ -40,6 +40,7 @@ decode step (every row of the step); the engine reads it once a run.
 
 from __future__ import annotations
 
+import sys
 import types
 from typing import List
 
@@ -161,16 +162,6 @@ def init_pool(cfg: MellumConfig, page: PageConfig, dtype="float32",
                                   dtype=torch.int64, device=device))
 
 
-def run_stats(pool: MellumPool, peak_pages: int) -> dict:
-    """The engine's stats of this family's cache and routing: the ring
-    pages a sliding layer holds, the peak of the managed (full-layer)
-    pages, and the rows routed to each expert of each layer (one read of
-    the device counter)."""
-    return {"kv_window_pages": pool.ring.num_pages,
-            "kv_full_pages_peak": peak_pages,
-            "moe_routed_tokens": pool.moe_counts.cpu().tolist()}
-
-
 # ---- the model pieces of the shared chain -----------------------------------
 
 class MellumModel(gpt2_paged.SingleDevice):
@@ -179,12 +170,57 @@ class MellumModel(gpt2_paged.SingleDevice):
     step's positions, a lower bound and a block table a layer kind, the
     grouped query layout, the expert layer; sliding layers commit to
     their ring. The rope frequencies are kept a (config, device), made
-    before any graph captures them."""
+    before any graph captures them. To the engine it is the family: the
+    paged mode alone, with float weights (bf16 on the card)."""
 
     graphs = True
+    entries = sys.modules[__name__]
 
     def __init__(self):
         self._rope = {}
+
+    @staticmethod
+    def refuse(econf, device, window=None) -> None:
+        off = [name for name, on in (
+            (f"cache_mode {econf.cache_mode!r}", econf.cache_mode != "paged"),
+            ("spec_k", econf.spec_k >= 2),
+            ("prefix_cache", econf.page.prefix_cache),
+            ("mesh_shape", bool(econf.mesh_shape)),
+            (f"param_dtype {econf.param_dtype!r}",
+             econf.param_dtype not in ("float32", "bfloat16")),
+            ("prefill_param_dtype",
+             econf.prefill_param_dtype is not None)) if on]
+        if off:
+            raise ValueError(
+                f"the Mellum family is served in paged mode with float "
+                f"weights only: {', '.join(off)} is not supported")
+        if (torch.device("cuda" if device is None else device).type == "cuda"
+                and econf.param_dtype != "bfloat16"):
+            raise ValueError(
+                "the Mellum family is served in bfloat16 on the card (its "
+                "grouped expert products take bf16), got param_dtype "
+                f"{econf.param_dtype!r}")
+        if window is not None:
+            raise ValueError("run(window=...) is not supported for the "
+                             "Mellum family: its sliding layers have their "
+                             "own window, its full layers keep every page")
+
+    def new_pool(self, cfg, page, dtype, device, max_seqs: int):
+        return init_pool(cfg, page, dtype=dtype, device=device,
+                         max_seqs=max_seqs)
+
+    @staticmethod
+    def start_run(pool) -> None:
+        pool.moe_counts.zero_()
+
+    @staticmethod
+    def run_stats(pool, peak_pages: int) -> dict:
+        """The ring pages a sliding layer holds, the peak of the managed
+        (full-layer) pages, the rows routed to each expert of each layer
+        (one read of the device counter)."""
+        return {"kv_window_pages": pool.ring.num_pages,
+                "kv_full_pages_peak": peak_pages,
+                "moe_routed_tokens": pool.moe_counts.cpu().tolist()}
 
     def kv_heads(self, cfg) -> int:
         return cfg.num_kv_heads

@@ -475,6 +475,9 @@ class TPModel(gpt2_paged.SingleDevice):
     def heads(self, cfg: GPT2Config) -> int:
         return cfg.num_heads // self.mesh.model_size
 
+    def new_pool(self, cfg, page, dtype, device, max_seqs: int):
+        return init_tp_pool(cfg, page, self.mesh, dtype=dtype, device=device)
+
     def embed(self, params, tokens, wpe_pos):
         return _tp_embed(params, tokens, wpe_pos, self.mesh)
 

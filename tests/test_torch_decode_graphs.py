@@ -53,12 +53,24 @@ def test_graph_eligible(device, use_kernel, rng, pen, model, want):
                                      pen, model) is want
 
 
-def test_chain_lengths_cover_every_link_length():
-    from llmc_paged_tpu_torch.engine.engine import _chain_lengths
+@pytest.mark.parametrize("decode_chunk", [1, 8, 32])
+@pytest.mark.parametrize("cap", [1, 2, 3, 7, 8, 9, 31, 32, 1000])
+@pytest.mark.parametrize("blocked", [False, True])
+def test_chain_lengths_cover_every_link_length(decode_chunk, cap, blocked):
+    """The engine's link length is 1 (no chain) or a length the graphs
+    capture: decode_chunk; a quarter of it when admission is
+    page-blocked or when ``cap`` (the context the fullest row has left)
+    only fits that; a sixteenth when both."""
+    from llmc_paged_tpu_torch.engine.engine import (_chain_length,
+                                                    _chain_lengths)
     assert _chain_lengths(32) == (2, 8, 32)
     assert _chain_lengths(8) == (2, 8)
     assert _chain_lengths(1) == ()
     assert DecodeGraphs((32, 8, 1, 8)).chunks == (8, 32)
+    got = _chain_length(decode_chunk, cap, blocked)
+    assert got == 1 or got in _chain_lengths(decode_chunk)
+    dc = decode_chunk // 4 if blocked else decode_chunk
+    assert got == next((k for k in (dc, dc // 4) if 1 < k <= cap), 1)
 
 
 # ---- the step body on the CPU -------------------------------------------------

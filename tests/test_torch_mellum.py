@@ -30,6 +30,7 @@ from llmc_paged_tpu_torch.config import (EngineConfig, MellumConfig,
 from llmc_paged_tpu_torch.engine.engine import InferenceEngine
 from llmc_paged_tpu_torch.engine.scheduler import Request
 from llmc_paged_tpu_torch.models import mellum, mellum_paged
+from test_torch_common import params_np, port_cfg
 
 CPU = torch.device("cpu")
 TOL = 1e-4       # f32 round-off, relative to the logits' largest magnitude
@@ -350,6 +351,38 @@ def test_a_run_window_raises_naming_the_family(params):
     with pytest.raises(ValueError, match="Mellum"):
         eng.run([Request(rid=0, prompt=[1, 2, 3], max_new_tokens=2)],
                 window=8)
+
+
+@pytest.mark.parametrize("family", ["gpt2", "mellum"])
+def test_the_model_object_is_the_family_seam(params, family, monkeypatch):
+    """The engine's pool is the one its model object builds, and only
+    Mellum's object adds its ring, full-page and routing stats."""
+    if family == "gpt2":
+        cfg = port_cfg()
+        weights = params_np(cfg, seed=0)
+        page = PageConfig(page_size=8, num_pages=40, max_seqs=2,
+                          pages_per_seq=8)
+    else:
+        cfg, weights, page = CFG, params, _page()
+    eng = InferenceEngine(weights, cfg, EngineConfig(
+        page=page, max_batch=2, greedy=True, decode_chunk=4), device=CPU)
+    kind = type(eng._model)
+    real, built = kind.new_pool, []
+
+    def new_pool(self, *a, **kw):
+        built.append(real(self, *a, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(kind, "new_pool", new_pool)
+    _, pool = eng._paged_state()
+    assert built == [pool]
+    assert isinstance(pool, mellum_paged.MellumPool) == (family == "mellum")
+    eng.run([Request(rid=0, prompt=[1, 2, 3, 4, 5], max_new_tokens=6)])
+    assert len(built) == 2 and eng._pool_cache is built[1]
+    family_stats = {"moe_routed_tokens", "kv_window_pages",
+                    "kv_full_pages_peak"}
+    assert family_stats & set(eng.stats) == (
+        family_stats if family == "mellum" else set())
 
 
 def test_config_round_trips_hf_keys():

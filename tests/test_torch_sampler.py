@@ -98,7 +98,8 @@ def _logits(seed=0, n=6, V=300, tie_row=None):
                                 dict(), dict(greedy=True)])
 def test_engine_row_samplers_equal(kw):
     """_sample_rows (incl. the top-k prefix ship and its boundary-tie
-    fallback) and _pick_token: the same tokens and the same RNG state
+    fallback), of a batch and of one row, against the JAX package's
+    _sample_rows and _pick_token: the same tokens and the same RNG state
     after the batch."""
     rows = _logits(tie_row=2)
     j, t = JS.Sampler(1337, **kw), TS.Sampler(1337, **kw)
@@ -107,7 +108,7 @@ def test_engine_row_samplers_equal(kw):
     assert got == want
     assert t.rng.state == j.rng.state
     for r in rows:
-        assert TE._pick_token(t, torch.from_numpy(r)) == \
+        assert TE._sample_rows(t, torch.from_numpy(r)[None], 1)[0] == \
             JE._pick_token(j, jnp.asarray(r))
 
 

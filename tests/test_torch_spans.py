@@ -2,6 +2,7 @@
 spans, buckets and per-request admission fields, and the benchmark's
 readers of them (benchmarks/metrics/), on the CPU."""
 
+import collections
 import threading
 import types
 
@@ -10,10 +11,11 @@ import pytest
 import torch
 
 from benchmarks.registry import Registry
-from llmc_paged_tpu_torch.config import EngineConfig, PageConfig
+from llmc_paged_tpu_torch.config import EngineConfig, MellumConfig, PageConfig
+from llmc_paged_tpu_torch.engine import engine as engine_mod
 from llmc_paged_tpu_torch.engine.engine import InferenceEngine
 from llmc_paged_tpu_torch.engine.scheduler import Request
-from llmc_paged_tpu_torch.models import gpt2_paged
+from llmc_paged_tpu_torch.models import gpt2_paged, mellum, mellum_paged
 from llmc_paged_tpu_torch.utils import spans
 from llmc_paged_tpu_torch.utils.spans import span
 from test_torch_common import params_np, port_cfg
@@ -365,6 +367,56 @@ def test_engine_spans_in_a_profiler_trace():
     assert {"engine.iteration", "engine.admit", "engine.prefill",
             "engine.link", "engine.fetch", "engine.deliver",
             "model.step"} <= keys
+
+
+def _family_engine(family):
+    """A tiny engine of ``family`` on the CPU (2 slots, links of 4) and
+    the module of its device entries."""
+    if family == "gpt2":
+        cfg = port_cfg()
+        params = params_np(cfg, seed=0)
+        page = PageConfig(page_size=8, num_pages=40, max_seqs=2,
+                          pages_per_seq=8)
+        module = gpt2_paged
+    else:
+        cfg = MellumConfig.tiny()
+        params = mellum.init_params(cfg, torch.Generator().manual_seed(1),
+                                    device="cpu", std=0.1)
+        page = PageConfig(page_size=4, num_pages=48, max_seqs=2,
+                          pages_per_seq=20)
+        module = mellum_paged
+    econf = EngineConfig(page=page, max_batch=2, greedy=True, decode_chunk=4)
+    return InferenceEngine(params, cfg, econf, device="cpu"), module
+
+
+@pytest.mark.parametrize("family", ["gpt2", "mellum"])
+def test_entries_wrapped_after_the_engine_is_built_are_called(family,
+                                                              monkeypatch):
+    """The benchmark's spans replace the family's three device entries
+    and engine._fetch on their modules after the engine is built: the
+    engine looks each up at every call. A host-sampled row takes single
+    steps while it runs, then the greedy row chains alone."""
+    eng, module = _family_engine(family)
+    calls = collections.Counter()
+
+    def count(mod, name):
+        real = getattr(mod, name)
+
+        def counted(*a, **kw):
+            calls[name] += 1
+            return real(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+
+    for name in ("prefill_paged", "decode_chunk_paged", "decode_step_paged"):
+        count(module, name)
+    count(engine_mod, "_fetch")
+    a, b = ([t % 256 for t in p] for p in _prompts([9, 6]))
+    done = eng.run([Request(rid=0, prompt=a, max_new_tokens=14),
+                    Request(rid=1, prompt=b, max_new_tokens=3, greedy=False)])
+    assert sorted(len(r.generated) for r in done) == [3, 14]
+    assert set(calls) == {"prefill_paged", "decode_chunk_paged",
+                          "decode_step_paged", "_fetch"}
+    assert calls["decode_step_paged"] == eng.stats["single_steps"]
 
 
 # -- the benchmark's readers --------------------------------------------------
